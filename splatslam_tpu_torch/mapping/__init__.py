@@ -1,0 +1,1 @@
+"""mapping of the PyTorch port (see the package docstring)."""

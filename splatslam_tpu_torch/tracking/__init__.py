@@ -1,0 +1,1 @@
+"""tracking of the PyTorch port (see the package docstring)."""

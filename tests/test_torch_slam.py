@@ -1,0 +1,78 @@
+"""The whole oracle slice end to end: `python -m splatslam_tpu_torch.run`'s
+main at --device cpu against the JAX package's SLAM on the same shrunk
+smoke_oracle configuration (96×128, 12 frames, capacity 4096, K=32, a few
+mapping iterations).
+
+Tracking is deterministic, so the keyframe count must match exactly and
+kf-ATE within 1e-3. The mapper's random draws (anchor subsampling,
+split noise) come from jax.random in one package and torch.Generator in
+the other, so PSNR and the depth L1s are held to a band instead: 1.5 dB
+and 0.05 m at this size.
+"""
+
+import json
+import os
+
+import numpy as np
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _cfg(out_dir):
+    from splatslam_tpu_torch.config import load_config
+    cfg = load_config(os.path.join(REPO, "configs/Synthetic/smoke_oracle.yaml"),
+                      os.path.join(REPO, "configs/splat_slam.yaml"))
+    cfg.pop("inherit_from", None)
+    cfg.update(max_frames=12, verbose=False, eval_full_traj=False,
+               eval_plots=False, scene="tiny")
+    cfg["synthetic"]["n_frames"] = 12
+    cfg["cam"].update(H=96, W=128, fx=80.0, fy=80.0, cx=63.5, cy=47.5,
+                      H_out=96, W_out=128)
+    cfg["data"]["output"] = str(out_dir)
+    cfg["meshing"]["mesh"] = False
+    m = cfg["mapping"]
+    m.update(capacity=4096, raster_K=32, final_refine_iters=24,
+             pcd_downsample=8, pcd_downsample_init=4)
+    m["Training"].update(init_itr_num=40, init_gaussian_update=20,
+                         init_gaussian_reset=1000, mapping_itr_num=10,
+                         window_size=4)
+    tr = cfg["tracking"]
+    tr.update(buffer=16, pretrained="")
+    tr["motion_filter"]["thresh"] = 0.4
+    tr["frontend"].update(keyframe_thresh=0.25, window=8)
+    return cfg
+
+
+def _run_jax(cfg):
+    from splatslam_tpu.slam import SLAM
+    slam = SLAM(cfg)
+    ate = slam.run()
+    save = slam.save_dir
+    with open(os.path.join(save, "rendering", "after_refine",
+                           "final_result.json")) as f:
+        r = json.load(f)
+    with open(os.path.join(save, "depth_stats.txt")) as f:
+        proxy = float(f.readline().split(":")[1])
+    return dict(n_keyframes=slam.video.counter, ate_rmse=ate["rmse"],
+                psnr=r["mean_psnr"], depth_l1=r["mean_depth_l1"],
+                proxy_depth_l1=proxy)
+
+
+def test_oracle_slam_matches_jax(tmp_path, monkeypatch):
+    import yaml
+    from splatslam_tpu_torch import run
+    monkeypatch.chdir(REPO)
+    cfg_t = _cfg(tmp_path / "torch")
+    path = tmp_path / "tiny.yaml"
+    with open(path, "w") as f:
+        yaml.dump(cfg_t, f)
+    got = run.main([str(path), "--device", "cpu"])
+    want = _run_jax(_cfg(tmp_path / "jax"))
+    print("port", {k: got[k] for k in want}, "jax", want)
+    assert got["n_keyframes"] == want["n_keyframes"] >= 5
+    assert abs(got["ate_rmse"] - want["ate_rmse"]) <= 1e-3
+    assert np.isfinite(got["psnr"]) and abs(got["psnr"] - want["psnr"]) <= 1.5
+    assert abs(got["depth_l1"] - want["depth_l1"]) <= 0.05
+    assert abs(got["proxy_depth_l1"] - want["proxy_depth_l1"]) <= 0.05
+    assert os.path.exists(tmp_path / "torch" / "tiny" / "gaussians.ply")

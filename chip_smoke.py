@@ -1,6 +1,14 @@
 """Smoke test of the PyTorch/CUDA port on one GPU.
 
-    python3 chip_smoke.py      # kernels + the main path (one card)
+    python3 chip_smoke.py                  # kernels + the main path (one card)
+    python3 chip_smoke.py --kernels-only   # phases 1-3 only
+    python3 chip_smoke.py --kernels-only "--time-flags= |-fmad=true"
+        # also time the kernels built with other nvcc flags (here: the
+        # port's own and -fmad=true) and report how far their results move
+    python3 chip_smoke.py --kernels-only --sweep-pixels-per-thread
+        # also time each kernel at every number of pixels per thread it is
+        # built for, on 1 to 10 cameras of the kernel-phase input: what
+        # raster_cuda.pixels_per_thread's thresholds rest on
 
 Phases, each unguarded (any failure exits non-zero):
   1. the card's name and power limit (nvidia-smi);
@@ -10,12 +18,18 @@ Phases, each unguarded (any failure exits non-zero):
      input at replica_scale shapes (10 cameras, 320x640, K=256, capacity
      131072), binned from a seeded Gaussian cloud by the port's bin_batch,
      held against their plain PyTorch versions on the card, then timed
-     with CUDA events (warm-up, median of 10);
+     with CUDA events (warm-up, median of 10), B1 with and without
+     n_touched; then the same on one camera of that input, the grid of most
+     of the main path's launches;
   4. main path: configs/Synthetic/replica_scale.yaml through the port's
-     SLAM at full width and full depth, with every kernel launch count reset just before and read just after;
-  5. a torch.profiler window over a few mapping iterations of the final
-     keyframe window (device time by kernel, device busy share);
-  6. the kernels JSON line, then the device JSON line last.
+     SLAM at full width and full depth, with every kernel launch count
+     reset just before and read just after;
+  5. the kernel phase again on the main path's own final keyframe window
+     (its map, cameras and tile lists as map_step_n bins them), so the
+     kernels are also checked and timed at the density the path runs;
+  6. a torch.profiler window over a few mapping iterations of that window
+     (device time by kernel, device busy share);
+  7. the kernels JSON line, then the device JSON line last.
 
 Exits non-zero without printing a result when no CUDA device is present,
 or when the port's package is not beside this script.
@@ -23,6 +37,7 @@ or when the port's package is not beside this script.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import os
@@ -32,29 +47,35 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# (pixel, contributor) pair cost in FP32 operations, counted from the kernel
-# source (exp counted as one): B1 evaluates the Gaussian (11), gates and
-# clamps alpha (5), updates transmittance and the weight (4) and accumulates
-# four channels (8); B2 repeats the evaluation and gating (20), forms s and
-# the suffix (9), dL/dalpha (6), the chain through the clamp (3) and the ten
-# field products (20), and reduces them over the warp (10 fields x 5 steps /
-# 32 lanes ~ 2).
-FWD_OPS_PER_PAIR = 28
-BWD_OPS_PER_PAIR = 60
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
-FP32_OPS_PER_S = 67e12          # H100 SXM FP32 outside the tensor cores
+# bound_ms comes from splatslam_tpu_torch.ops.raster_cuda.kernel_bounds: the
+# larger of bytes over 3.35 TB/s and FP32 operations over 67 TFLOP/s, the
+# operations counted from the function's arithmetic, not from a kernel
+# design: 28 (B1) or 60 (B2) for a pixel-contributor pair that carries a
+# weight in this run's data (counted by B1's n_touched), 12 for one that does
+# not (its evaluation and one comparison; all that follows is an exact zero).
+# The log also gives the figure with every pair charged in full, which is
+# what the first design's rows were held against. Beside it each kernel gets
+# the time that the
+# SM's load/store-and-shuffle pipe alone would need for the design in the
+# tree (raster_cuda.lsu_pipe_ms): the FP32 count never limited the first
+# design of these kernels, that pipe did (50 shuffles, 11 shared loads and 10
+# shared stores per contributor and warp in B2), so the figure says which
+# wall a kernel stands at.
 
 
 def log(msg):
     print(msg, flush=True)
 
 
-def card_line():
+def smi(query, fmt="csv,noheader"):
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()
-    return out[0]
+        ["nvidia-smi", f"--query-gpu={query}", f"--format={fmt}"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    return out.splitlines()[0]
+
+
+def card_line():
+    return smi("name,power.limit")
 
 
 def build_kernels():
@@ -127,27 +148,117 @@ def kernel_input(dev, seed=0, B=10, H=320, W=640, N=131072, K=256):
     return packets, tile_ids, counts, (W + R.TILE - 1) // R.TILE
 
 
-def kernel_phase(dev):
+def raw_calls(lib, packets, tile_ids, counts, ntx, gout, out):
+    """B1 and B2 through the C entry points of `lib` into buffers made once:
+    (fwd(want_touched, pixels_per_thread), bwd(pixels_per_thread), B1's
+    output buffer, B2's gradient buffer, which bwd adds to)."""
+    import torch
+    B, N, _ = packets.shape
+    _, T, K = tile_ids.shape
+    nt = torch.zeros((B, N), dtype=torch.int32, device=packets.device)
+    grad = torch.zeros((B, N, 10), device=packets.device)
+    o = torch.empty_like(out)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(err):
+        if err:
+            raise SystemExit(f"launch failed with CUDA error {err}")
+
+    ptr = lambda *ts: [t.data_ptr() for t in ts]
+    fwd = lambda touch, ppt: call(lib.composite_fwd(
+        *ptr(packets, tile_ids, counts, o, nt), B, N, T, K, ntx, touch, ppt,
+        stream))
+    bwd = lambda ppt: call(lib.composite_bwd(
+        *ptr(packets, tile_ids, counts, gout, out, grad), B, N, T, K, ntx,
+        ppt, stream))
+    return fwd, bwd, o, grad
+
+
+def sweep_pixels_per_thread(packets, tile_ids, counts, ntx):
+    """Times B1 (without n_touched, as most of the main path's launches)
+    and B2 at every number of pixels per thread they are built for, on the
+    first 1 to 10 cameras of the input, without output allocation."""
+    import torch
+    from splatslam_tpu_torch.ops import raster_cuda
+    lib = raster_cuda.bind(raster_cuda.build())
+    for B in (1, 2, 3, 4, 6, 8, 10):
+        pk, ids, cn = (x[:B].contiguous() for x in (packets, tile_ids,
+                                                    counts))
+        out, _ = raster_cuda.composite_fwd(pk, ids, cn, ntx)
+        gout = torch.ones_like(out)
+        fwd, bwd, _, _ = raw_calls(lib, pk, ids, cn, ntx, gout, out)
+        ms = {("composite_fwd", p): cuda_ms(lambda: fwd(0, p))
+              for p in raster_cuda.PIXELS_PER_THREAD["composite_fwd"]}
+        ms.update({("composite_bwd", p): cuda_ms(lambda: bwd(p))
+                   for p in raster_cuda.PIXELS_PER_THREAD["composite_bwd"]})
+        log(f"pixels per thread, {B} cameras ({B * counts.shape[1]} tiles): "
+            + ", ".join(f"{k} at {p}: {t:.3f} ms" + (
+                " (chosen)" if raster_cuda.pixels_per_thread(
+                    k, B * counts.shape[1]) == p else "")
+                for (k, p), t in ms.items()))
+
+
+def time_other_flags(flags, packets, tile_ids, counts, ntx, gout, out):
+    """Times B1/B2 built with other nvcc flags, through the raw C entry
+    points, and reports how far their results are from the port's build:
+    what a flag of the port's build costs."""
+    import torch
+    from splatslam_tpu_torch.ops import raster_cuda
+    src = raster_cuda.SOURCES[0]
+    tag = hashlib.sha256(" ".join(flags).encode()).hexdigest()[:8]
+    raster_cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    target = raster_cuda.BUILD_DIR / f"lib{src.stem}_timed_{tag}.so"
+    subprocess.run([raster_cuda._nvcc(), *flags, "-o", str(target), str(src)],
+                   check=True)
+    B, T = counts.shape
+    ppt = {k: raster_cuda.pixels_per_thread(k, B * T)
+           for k in ("composite_fwd", "composite_bwd")}
+    fwd, bwd, o, grad = raw_calls(raster_cuda.bind(target), packets,
+                                  tile_ids, counts, ntx, gout, out)
+    extra = [f for f in flags if f not in raster_cuda.NVCC_FLAGS]
+    ms = (cuda_ms(lambda: fwd(1, ppt["composite_fwd"])),
+          cuda_ms(lambda: fwd(0, ppt["composite_fwd"])),
+          cuda_ms(lambda: bwd(ppt["composite_bwd"])))
+    grad.zero_()
+    bwd(ppt["composite_bwd"])
+    ref = raster_cuda.composite_bwd(packets, tile_ids, counts, ntx, gout, out)
+    log(f"built with {extra or 'the port\'s flags'} (no output allocation "
+        f"in these calls): B1 {ms[0]:.3f} ms, B1 without n_touched "
+        f"{ms[1]:.3f} ms, B2 {ms[2]:.3f} ms; against the port's build: "
+        f"image max|diff| {(o - out).abs().max().item():.3e}, grad max|diff| "
+        f"{(grad - ref).abs().max().item():.3e}, grad allclose(rtol 1e-3, "
+        f"atol 1e-4) {bool(torch.allclose(grad, ref, rtol=1e-3, atol=1e-4))}")
+
+
+def kernel_phase(label, packets, tile_ids, counts, ntx, time_flags=None):
+    """B1/B2 on one input: held against their plain versions, then timed.
+    Returns the measurements by kernel name."""
     import torch
     from splatslam_tpu_torch.ops import raster_cuda, rasterizer as R
-    packets, tile_ids, counts, ntx = kernel_input(dev)
+    dev = packets.device
     B, N, _ = packets.shape
     _, T, K = tile_ids.shape
     pairs = int(torch.clamp(counts, max=K).sum()) * R.NPIX
-    log(f"kernel input: B={B} T={T} K={K} N={N} mean count "
+    log(f"{label} input: B={B} T={T} K={K} N={N} mean count "
         f"{counts.float().mean().item():.1f} overflow tiles "
         f"{int((counts > K).sum())} pixel-contributor pairs {pairs}")
 
     out_k, nt_k = raster_cuda.composite_fwd(packets, tile_ids, counts, ntx)
+    out_n, nt_n = raster_cuda.composite_fwd(packets, tile_ids, counts, ntx,
+                                            want_touched=False)
     out_p, nt_p = R.composite_fwd_torch(packets, tile_ids, counts, ntx)
     torch.cuda.synchronize()
     err_cd = (out_k[:, :, :4] - out_p[:, :, :4]).abs().max().item()
     err_a = (out_k[:, :, 4] - out_p[:, :, 4]).abs().max().item()
     nt_eq = bool(torch.equal(nt_k, nt_p))
+    log(f"pairs with a weight > 0: {100 * int(nt_k.sum()) / pairs:.2f}% of "
+        f"the pairs")
+    no_touch_ok = bool(torch.equal(out_n, out_k)) and not bool(nt_n.any())
     log(f"B1 vs plain: color/depth max|err| {err_cd:.3e} (tol 1e-5), alpha "
-        f"max|err| {err_a:.3e} (tol 1e-4), n_touched equal {nt_eq}")
-    if not (err_cd <= 1e-5 and err_a <= 1e-4 and nt_eq):
-        raise SystemExit("B1 disagrees with its plain version")
+        f"max|err| {err_a:.3e} (tol 1e-4), n_touched equal {nt_eq}; without "
+        f"n_touched: same image and zero counts {no_touch_ok}")
+    if not (err_cd <= 1e-5 and err_a <= 1e-4 and nt_eq and no_touch_ok):
+        raise SystemExit(f"B1 disagrees with its plain version ({label})")
 
     g = torch.Generator(device=dev).manual_seed(1)
     gout = torch.randn(out_k.shape, generator=g, device=dev)
@@ -160,10 +271,12 @@ def kernel_phase(dev):
     log(f"B2 vs plain: grad max|err| {err_g:.3e} max|grad| "
         f"{gr_p.abs().max().item():.3e} allclose(rtol 1e-3, atol 1e-4) {ok_g}")
     if not ok_g:
-        raise SystemExit("B2 disagrees with its plain version")
+        raise SystemExit(f"B2 disagrees with its plain version ({label})")
 
-    ms_f = cuda_ms(lambda: raster_cuda.composite_fwd(packets, tile_ids,
-                                                      counts, ntx))
+    fwd = lambda **kw: raster_cuda.composite_fwd(packets, tile_ids, counts,
+                                                 ntx, **kw)
+    ms_f = cuda_ms(fwd)
+    ms_fn = cuda_ms(lambda: fwd(want_touched=False))
     ms_fp = cuda_ms(lambda: R.composite_fwd_torch(packets, tile_ids, counts,
                                                   ntx), reps=10, warmup=1)
     ms_b = cuda_ms(lambda: raster_cuda.composite_bwd(packets, tile_ids,
@@ -172,30 +285,62 @@ def kernel_phase(dev):
     ms_bp = cuda_ms(lambda: R.composite_bwd_torch(packets, tile_ids, counts,
                                                   ntx, gout, out_k),
                     reps=10, warmup=1)
+    bounds = raster_cuda.kernel_bounds(B, N, T, K, pairs, int(nt_k.sum()))
+    full = raster_cuda.kernel_bounds(B, N, T, K, pairs)
+    clock = float(smi("clocks.max.sm", "csv,noheader,nounits")) * 1e6
+    pipe = {k: raster_cuda.lsu_pipe_ms(k, pairs, clock, B * T) for k in bounds}
+    issues = {k: raster_cuda.lsu_issues_per_32_pairs(k, B * T) for k in bounds}
+    ppt = {k: raster_cuda.pixels_per_thread(k, B * T) for k in bounds}
+    (bf, bf_by), (bb, bb_by) = (bounds["composite_fwd"],
+                                bounds["composite_bwd"])
+    log(f"B1 {ms_f:.3f} ms, without n_touched {ms_fn:.3f} ms (plain "
+        f"{ms_fp:.3f} ms, bound {bf:.3f} ms by {bf_by}); B2 {ms_b:.3f} ms "
+        f"(plain {ms_bp:.3f} ms, bound {bb:.3f} ms by {bb_by}); with every "
+        f"pair charged in full the bounds would be "
+        f"{full['composite_fwd'][0]:.3f} and {full['composite_bwd'][0]:.3f} "
+        f"ms")
+    log("load/store-and-shuffle pipe alone at "
+        f"{clock / 1e9:.3f} GHz: " + ", ".join(
+            f"{k} ({ppt[k]} pixels per thread) {issues[k]:.3f} issues per 32 "
+            f"pairs = {pipe[k]:.3f} ms" for k in pipe))
+    for flags in time_flags or ():
+        time_other_flags(flags, packets, tile_ids, counts, ntx, gout, out_k)
+    return {
+        "composite_fwd": dict(
+            max_abs_err=max(err_cd, err_a), ms=ms_f, ms_no_touched=ms_fn,
+            plain_ms=ms_fp, bound_ms=bf, bound_by=bf_by, library_ms=None,
+            pairs=pairs),
+        "composite_bwd": dict(
+            max_abs_err=err_g, ms=ms_b, plain_ms=ms_bp, bound_ms=bb,
+            bound_by=bb_by, library_ms=None, pairs=pairs),
+    }
 
-    def bound(nbytes, ops):
-        tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
-        return (tb, "bytes") if tb >= to else (to, "operations")
 
-    n_in = packets.numel() * 4 + tile_ids.numel() * 4 + counts.numel() * 4
-    fwd_bytes = n_in + out_k.numel() * 4 + nt_k.numel() * 4
-    bwd_bytes = n_in + gout.numel() * 4 + out_k.numel() * 4 + gr_k.numel() * 4
-    bf, bf_by = bound(fwd_bytes, pairs * FWD_OPS_PER_PAIR)
-    bb, bb_by = bound(bwd_bytes, pairs * BWD_OPS_PER_PAIR)
-    log(f"B1 {ms_f:.3f} ms (plain {ms_fp:.3f} ms, bound {bf:.3f} ms by "
-        f"{bf_by}); B2 {ms_b:.3f} ms (plain {ms_bp:.3f} ms, bound {bb:.3f} "
-        f"ms by {bb_by})")
-    src = "splatslam_tpu_torch/csrc/composite.cu"
-    return [
-        dict(name="composite_fwd", route="cuda", source=src,
-             replaces="splatslam_tpu/ops/raster_pallas.py:333",
-             max_abs_err=max(err_cd, err_a), ms=ms_f, plain_ms=ms_fp,
-             bound_ms=bf, bound_by=bf_by, library_ms=None),
-        dict(name="composite_bwd", route="cuda", source=src,
-             replaces="splatslam_tpu/ops/raster_pallas.py:387",
-             max_abs_err=err_g, ms=ms_b, plain_ms=ms_bp,
-             bound_ms=bb, bound_by=bb_by, library_ms=None),
-    ]
+def window_input(slam):
+    """Packets and tile lists of the main path's final keyframe window, as
+    map_step_n's loop makes them: (packets, tile_ids, counts, ntx)."""
+    import torch
+    from splatslam_tpu_torch.mapping import gaussians as G, mapper as M
+    from splatslam_tpu_torch.ops import rasterizer as R
+    mp = slam.mapper
+    st = mp.st
+    with torch.no_grad():
+        w2cs = mp._stack_cams([mp.viewpoints[k]
+                               for k in mp.current_window])[0]
+        B, N = w2cs.shape[0], st.capacity
+        tile_ids, counts = M._rebin(st, w2cs, mp.intrinsics, H=mp.H, W=mp.W,
+                                    K=mp.K, margin=4.0,
+                                    rebin_every=mp.rebin_every,
+                                    max_span=mp.max_span)
+        m2d, dz, conic, _, _ = R.project_gaussians(
+            st.xyz, G.get_scaling(st), st.rotation, w2cs, mp.intrinsics,
+            mp.H, mp.W)
+        cols = M._colors(st.f_dc, st.f_rest, st.xyz, w2cs, mp.sh_degree)
+        if cols.dim() == 2:
+            cols = cols[None].expand(B, N, 3)
+        packets = R.make_packets(m2d, conic, cols, G.get_opacity(st)[:, 0],
+                                 dz)
+    return packets, tile_ids, counts, (mp.W + R.TILE - 1) // R.TILE
 
 
 def main_path(dev):
@@ -300,8 +445,21 @@ def profile_phase(slam, iters=8):
         log(f"  {t / 1e3:9.2f} ms  x{n:<5d} {name[:90]}")
 
 
-def main():
+def main(argv=None):
+    import argparse
     import torch
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="stop after the kernel phase")
+    ap.add_argument("--time-flags", default=None,
+                    help="extra nvcc flags (space-separated; several sets "
+                    "separated by '|', an empty set is the port's own "
+                    "flags) for further builds that are timed beside the "
+                    "port's; a -fmad flag replaces the port's")
+    ap.add_argument("--sweep-pixels-per-thread", action="store_true",
+                    help="time each kernel at every number of pixels per "
+                    "thread it is built for, on 1 to 10 cameras")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -319,11 +477,40 @@ def main():
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     log(f"kernel build: {build_kernels():.1f} s")
-    kernels = kernel_phase(dev)
+    from splatslam_tpu_torch.ops import raster_cuda
+    time_flags = []
+    for extra in args.time_flags.split("|") if args.time_flags else ():
+        extra = extra.split()
+        drop = {"-fmad=false"} if any(f.startswith("-fmad") for f in extra) \
+            else set()
+        time_flags.append([f for f in raster_cuda.NVCC_FLAGS if f not in drop]
+                          + extra)
+    inputs = kernel_input(dev)
+    cloud = kernel_phase("kernel phase", *inputs, time_flags=time_flags)
+    # one camera of the same cloud: the grid of the map initialisation and
+    # of the final refinement, most of the main path's launches
+    single = kernel_phase("one camera", *[
+        x[:1].contiguous() if torch.is_tensor(x) else x for x in inputs])
+    if args.sweep_pixels_per_thread:
+        sweep_pixels_per_thread(*inputs)
+    if args.kernels_only:
+        log(json.dumps(dict(kernel_phase=cloud, one_camera=single)))
+        return 0
     counts, slam = main_path(dev)
+    window = kernel_phase("final window", *window_input(slam))
     profile_phase(slam)
-    for k in kernels:
-        k["launches"] = counts[k["name"]]
+    src = "splatslam_tpu_torch/csrc/composite.cu"
+    replaces = {"composite_fwd": "splatslam_tpu/ops/raster_pallas.py:333",
+                "composite_bwd": "splatslam_tpu/ops/raster_pallas.py:387"}
+    kernels = []
+    for name, m in cloud.items():
+        w = window[name]
+        kernels.append(dict(
+            name=name, route="cuda", source=src, replaces=replaces[name],
+            launches=counts[name], **m,
+            one_camera={k: v for k, v in single[name].items()
+                        if k != "library_ms"},
+            window={k: v for k, v in w.items() if k != "library_ms"}))
     for mod in ("jax", "splatslam_tpu"):
         if mod in sys.modules:
             raise SystemExit(f"{mod} was imported")

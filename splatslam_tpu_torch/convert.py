@@ -9,11 +9,13 @@ import dataclasses
 import numpy as np
 import torch
 
+from . import resolve_device
 from .mapping.gaussians import GaussianState
 from .tracking.depth_video import VideoState
 
 
 def _fields(cls, d, device):
+    device = resolve_device(device)
     out = {}
     for f in dataclasses.fields(cls):
         if f.name not in d:
@@ -22,13 +24,14 @@ def _fields(cls, d, device):
     return cls(**out)
 
 
-def gaussian_state_from_numpy(d: dict, device="cpu") -> GaussianState:
+def gaussian_state_from_numpy(d: dict, device=None) -> GaussianState:
     """Parameters, Adam moments, alive mask and statistics of a JAX
-    GaussianState (numpy arrays keyed by field name)."""
+    GaussianState (numpy arrays keyed by field name). `device` None is the
+    GPU (resolve_device)."""
     return _fields(GaussianState, d, device)
 
 
-def video_state_from_numpy(d: dict, device="cpu") -> VideoState:
+def video_state_from_numpy(d: dict, device=None) -> VideoState:
     """A JAX VideoState (numpy arrays keyed by field name). The learned
     tracker's network fields (fmaps, nets, inps) are ignored: this slice
     does not carry them."""

@@ -11,6 +11,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import resolve_device
+
 
 @dataclasses.dataclass
 class Camera:
@@ -21,7 +23,9 @@ class Camera:
     w2c_gt: np.ndarray               # (4, 4) from the tracker
 
 
-def make_camera(uid, image, depth, w2c, device="cpu"):
+def make_camera(uid, image, depth, w2c, device=None):
+    """`device` None is the GPU (resolve_device)."""
+    device = resolve_device(device)
     # w2c_gt gets its own copy: an in-place w2c edit must not reach it
     image = torch.as_tensor(np.asarray(image), dtype=torch.float32,
                             device=device)

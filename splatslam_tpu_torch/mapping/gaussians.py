@@ -20,6 +20,8 @@ import os
 import numpy as np
 import torch
 
+from .. import resolve_device
+
 C0 = 0.28209479177387814  # SH DC basis
 
 PARAM_NAMES = ("xyz", "f_dc", "f_rest", "opacity", "scaling", "rotation")
@@ -81,7 +83,10 @@ class GaussianState:
 FIELDS = tuple(f.name for f in dataclasses.fields(GaussianState))
 
 
-def make_state(capacity: int, sh_degree: int = 0, device="cpu"):
+def make_state(capacity: int, sh_degree: int = 0, device=None):
+    """Empty capacity-padded state; `device` None is the GPU
+    (resolve_device)."""
+    device = resolve_device(device)
     R = (sh_degree + 1) ** 2 - 1
     z = lambda *s: torch.zeros(s, dtype=torch.float32, device=device)
     rot = z(capacity, 4)

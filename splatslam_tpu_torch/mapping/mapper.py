@@ -17,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import resolve_device
 from ..ops import lie, rasterizer as rz, sh as sh_ops
 from ..tracking.depth_video import nanmedian
 from . import gaussians as G
@@ -228,13 +229,13 @@ def map_step_n(st, exp_state, tau_state, w2cs, images, depths, exposure,
 
 class Mapper:
     def __init__(self, cfg, video, dataset, mono_loader=None, printer=None,
-                 device="cpu"):
+                 device=None):
         self.cfg = cfg
         self.video = video
         self.dataset = dataset
         self.mono_loader = mono_loader or (lambda idx: None)
         self.printer = printer
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
 
         m = cfg["mapping"]
         tr = m["Training"]

@@ -43,6 +43,35 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # kernel launches, incremented where each wrapper launches its kernel
 launches = {"composite_fwd": 0, "composite_bwd": 0}
 
+# Bound reckoning (kernel_bounds). A (pixel, contributor) pair that carries
+# a weight costs, in FP32 operations counted from the arithmetic the plain
+# versions define (exp as one): B1 evaluates the Gaussian (11), gates and
+# clamps alpha (5), updates transmittance and the weight (4) and accumulates
+# four channels (8); B2 repeats the evaluation and gating (20), forms s and
+# the suffix (9), dL/dalpha (6), the chain through the clamp (3), the ten
+# field products (20) and its share of the sum over the tile's pixels (2).
+# A pair without a weight is an exact zero of both functions, known after
+# the evaluation (11) and one comparison of the power with the opacity's
+# threshold. The counts belong to the function, not to a kernel design.
+FWD_OPS_PER_PAIR = 28
+BWD_OPS_PER_PAIR = 60
+DEAD_OPS_PER_PAIR = 12
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
+FP32_OPS_PER_S = 67e12          # H100 SXM FP32 outside the tensor cores
+SM_COUNT = 132                  # H100 SXM
+
+# Issues on an SM's load/store-and-shuffle pipe (one warp-wide shared load,
+# shared store, shuffle or atomic per clock) per contributor and warp, read
+# from csrc/composite.cu: 3 broadcast 16-byte shared loads and one vote; B1
+# adds one warp sum for n_touched, B2 the 12 shuffles of reduce10 and one
+# atomic instruction. A warp covers 32 · P pairs per contributor, so per 32
+# pairs that is 5/P and 17/P. The design before this one (one thread per
+# pixel) spent 12 (B1) and 71 (B2) per 32 pairs.
+LSU_ISSUES_PER_CONTRIBUTOR = {"composite_fwd": 5, "composite_bwd": 17}
+
+# pixels per thread each kernel is built for (csrc/composite.cu)
+PIXELS_PER_THREAD = {"composite_fwd": (2, 4), "composite_bwd": (4, 8)}
+
 _lib = None
 
 
@@ -59,6 +88,61 @@ def _nvcc():
     return exe
 
 
+def kernel_bounds(B, N, T, K, pairs, live_pairs=None):
+    """Least milliseconds an H100 could take for B1 and B2 on one input:
+    {"composite_fwd": (ms, "bytes" | "operations"), "composite_bwd": ...}.
+
+    The larger of the bytes each function must move (every input read
+    once, every output written once) over the card's memory rate and its
+    FP32 operations over the card's peak rate outside the tensor cores.
+    `pairs` is the input's (pixel, contributor) pair count,
+    256 · Σ min(count, K) — what this input needs, not B·T·K·256 — and
+    `live_pairs` how many of them carry a weight > 0 (the sum of B1's
+    n_touched): those cost the full 28 (B1) or 60 (B2) operations, the
+    others 12. Without `live_pairs` every pair is charged in full."""
+    live = pairs if live_pairs is None else live_pairs
+    dead = pairs - live
+    n_in = 4 * (B * N * 10 + B * T * K + B * T)
+    n_out = 4 * B * T * 5 * 256
+    fwd_bytes = n_in + n_out + 4 * B * N
+    bwd_bytes = n_in + 2 * n_out + 4 * B * N * 10
+
+    def bound(nbytes, ops):
+        tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+        return (tb, "bytes") if tb >= to else (to, "operations")
+
+    dead_ops = dead * DEAD_OPS_PER_PAIR
+    return {
+        "composite_fwd": bound(fwd_bytes, live * FWD_OPS_PER_PAIR + dead_ops),
+        "composite_bwd": bound(bwd_bytes, live * BWD_OPS_PER_PAIR + dead_ops)}
+
+
+def pixels_per_thread(name, n_tiles):
+    """How many of a tile's 256 pixels one thread of kernel `name`
+    composites on a grid of `n_tiles` = B · T tiles: 8 is one warp per
+    tile, 4 and 2 split a tile over 2 and 4 warps. Fewer pixels per
+    thread cost more staging, votes and atomics per pixel but fill the
+    card when the tiles are few, and cull finer. B1 is built for 2 and 4,
+    B2 for 4 and 8 (PIXELS_PER_THREAD); the thresholds are where the times
+    of `chip_smoke.py --kernels-only --sweep-pixels-per-thread` cross on
+    an H100 at 800 tiles per camera."""
+    if name == "composite_fwd":
+        return 2 if n_tiles < 1200 else 4
+    return 4 if n_tiles < 6000 else 8
+
+
+def lsu_issues_per_32_pairs(name, n_tiles):
+    return LSU_ISSUES_PER_CONTRIBUTOR[name] / pixels_per_thread(name, n_tiles)
+
+
+def lsu_pipe_ms(name, pairs, sm_clock_hz, n_tiles):
+    """Milliseconds the load/store-and-shuffle pipe alone needs for kernel
+    `name` on `pairs` pairs of a grid of `n_tiles` tiles at the given SM
+    clock: the wall the first design stood at."""
+    return (pairs / 32 * lsu_issues_per_32_pairs(name, n_tiles)
+            / (SM_COUNT * sm_clock_hz) * 1e3)
+
+
 def library_path(src: Path = _SRC) -> Path:
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
                             ).hexdigest()[:12]
@@ -66,8 +150,9 @@ def library_path(src: Path = _SRC) -> Path:
 
 
 def build_command(src: Path = _SRC):
-    """(nvcc argv, target path) for one kernel source; the caller may run
-    several such commands at once (chip_smoke.py does)."""
+    """(nvcc argv, temporary output, target path) for one kernel source;
+    the caller may run several such commands at once (chip_smoke.py
+    does)."""
     target = library_path(src)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
@@ -89,16 +174,21 @@ def build(src: Path = _SRC) -> Path:
     return target
 
 
+def bind(path):
+    """The C entry points of a built library, with their argument types."""
+    lib = ctypes.CDLL(str(path))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.composite_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
+    lib.composite_fwd.restype = i
+    lib.composite_bwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.composite_bwd.restype = i
+    return lib
+
+
 def _load():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.composite_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
-        lib.composite_fwd.restype = i
-        lib.composite_bwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
-        lib.composite_bwd.restype = i
-        _lib = lib
+        _lib = bind(build())
     return _lib
 
 
@@ -119,6 +209,9 @@ def _check_all(packets, tile_ids, counts):
     dev = packets.device
     if tile_ids.device != dev or counts.device != dev:
         raise ValueError("packets, tile_ids and counts must share a device")
+    if packets.data_ptr() % 8:
+        raise ValueError("packets: the kernels gather rows with 8-byte "
+                         "copies and need an 8-byte aligned tensor")
     return B, N, T, K
 
 
@@ -143,7 +236,7 @@ def composite_fwd(packets, tile_ids, counts, ntx: int,
     err = lib.composite_fwd(
         packets.data_ptr(), tile_ids.data_ptr(), counts.data_ptr(),
         out.data_ptr(), ntouch.data_ptr(), B, N, T, K, int(ntx),
-        int(bool(want_touched)),
+        int(bool(want_touched)), pixels_per_thread("composite_fwd", B * T),
         torch.cuda.current_stream(packets.device).cuda_stream)
     _raise_on(err, "composite_fwd")
     launches["composite_fwd"] += 1
@@ -166,7 +259,8 @@ def composite_bwd(packets, tile_ids, counts, ntx: int, gout, fwdout):
     err = lib.composite_bwd(
         packets.data_ptr(), tile_ids.data_ptr(), counts.data_ptr(),
         gout.data_ptr(), fwdout.data_ptr(), grad.data_ptr(), B, N, T, K,
-        int(ntx), torch.cuda.current_stream(packets.device).cuda_stream)
+        int(ntx), pixels_per_thread("composite_bwd", B * T),
+        torch.cuda.current_stream(packets.device).cuda_stream)
     _raise_on(err, "composite_bwd")
     launches["composite_bwd"] += 1
     return grad

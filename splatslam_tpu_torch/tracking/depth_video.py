@@ -24,6 +24,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import resolve_device
 from ..ops import lie, projective as pops, ba as ba_ops
 from ..ops.upsample import upsample_disp_uniform
 
@@ -51,7 +52,9 @@ class VideoState:
 
 
 def make_video_state(buffer: int, H: int, W: int, down: int = 8,
-                     device="cpu") -> VideoState:
+                     device=None) -> VideoState:
+    """Empty keyframe buffer; `device` None is the GPU (resolve_device)."""
+    device = resolve_device(device)
     h, w = H // down, W // down
     f32 = dict(dtype=torch.float32, device=device)
     return VideoState(
@@ -211,9 +214,9 @@ def _disp8(full, down, h, w):
 class DepthVideo:
     """Host facade over VideoState, mirroring the reference API."""
 
-    def __init__(self, cfg, device="cpu"):
+    def __init__(self, cfg, device=None):
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.H = cfg["cam"]["H_out"]
         self.W = cfg["cam"]["W_out"]
         self.down = 8

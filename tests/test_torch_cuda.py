@@ -6,6 +6,16 @@ torch and the port only, so it runs on a GPU machine without jax:
   * B1/B2 against their plain versions: color/depth 1e-5, alpha 1e-4 (the
     early exit of saturated tiles), n_touched exact, gradients rtol 1e-3 /
     atol 1e-4 (atomics reorder the sums);
+  * the same on the hard inputs of tests/composite_cases.py (overflowing
+    and empty tiles, padding inside a count, K off the staging batch,
+    colliding ids, saturated tiles, elongated Gaussians), with and without
+    n_touched and at each number of pixels per thread the kernels are built
+    for, and that any other number is refused (the
+    wrappers pick it from the grid's size; these grids are all small):
+    what tests/test_torch_composite_cases.py holds against the JAX package
+    on the CPU. In the saturated case the gradients' absolute tolerance is
+    1e-4 of each field's largest magnitude: the conic fields sum terms
+    ~1e3 times the opacity field's over every pixel of the image;
   * rasterize_batch and its gradients on the GPU (kernels) against the
     CPU (plain versions), same tolerances.
 """
@@ -15,6 +25,7 @@ import pytest
 import torch
 
 from splatslam_tpu_torch.ops import rasterizer as trz, raster_cuda
+from composite_cases import CASES, make_case
 
 
 def _need_cuda():
@@ -61,6 +72,58 @@ def test_cuda_kernels_match_plain(ntx, nty):
     g_p = trz.composite_bwd_torch(pk, ids, counts, ntx, gout, out_k)
     torch.testing.assert_close(g_k, g_p, rtol=1e-3, atol=1e-4)
     assert raster_cuda.launches == {"composite_fwd": 1, "composite_bwd": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ppt", [
+    dict(zip(raster_cuda.PIXELS_PER_THREAD, p))
+    for p in zip(*raster_cuda.PIXELS_PER_THREAD.values())],
+    ids=lambda p: "-".join(map(str, p.values())))
+@pytest.mark.parametrize("want_touched", [True, False])
+@pytest.mark.parametrize("name", CASES)
+def test_cuda_kernels_match_plain_on_hard_cases(name, want_touched, ppt,
+                                                monkeypatch):
+    _need_cuda()
+    monkeypatch.setattr(raster_cuda, "pixels_per_thread",
+                        lambda kernel, n_tiles: ppt[kernel])
+    c = make_case(name)
+    pk, ids, counts, gout = [torch.as_tensor(c[k]).cuda() for k in (
+        "packets", "tile_ids", "counts", "gout")]
+    ntx = c["ntx"]
+    raster_cuda.reset_launch_counts()
+    out_k, nt_k = raster_cuda.composite_fwd(pk, ids, counts, ntx,
+                                            want_touched)
+    out_p, nt_p = trz.composite_fwd_torch(pk, ids, counts, ntx, want_touched)
+    torch.testing.assert_close(out_k[:, :, :4], out_p[:, :, :4], atol=1e-5,
+                               rtol=0)
+    torch.testing.assert_close(out_k[:, :, 4], out_p[:, :, 4], atol=1e-4,
+                               rtol=0)
+    assert torch.equal(nt_k, nt_p)
+    assert bool(nt_k.any()) == want_touched
+    g_k = raster_cuda.composite_bwd(pk, ids, counts, ntx, gout, out_k)
+    g_p = trz.composite_bwd_torch(pk, ids, counts, ntx, gout, out_k)
+    assert g_k.shape == g_p.shape and float(g_p.abs().max()) > 0
+    for f in range(10):
+        scale = max(1.0, float(g_p[..., f].abs().max())) \
+            if name == "saturated" else 1.0
+        torch.testing.assert_close(g_k[..., f], g_p[..., f], rtol=1e-3,
+                                   atol=1e-4 * scale)
+    assert raster_cuda.launches == {"composite_fwd": 1, "composite_bwd": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,ppt", [("composite_fwd", 8),
+                                        ("composite_bwd", 2)])
+def test_unbuilt_pixels_per_thread_is_refused(kernel, ppt, monkeypatch):
+    _need_cuda()
+    monkeypatch.setattr(raster_cuda, "pixels_per_thread",
+                        lambda k, n_tiles: ppt if k == kernel else 4)
+    pk, ids, counts, gout = [x.cuda() for x in _composite_case(3, 2)]
+    raster_cuda.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="CUDA launch failed"):
+        out, _ = raster_cuda.composite_fwd(pk, ids, counts, 3)
+        raster_cuda.composite_bwd(pk, ids, counts, 3, gout, out)
+    assert raster_cuda.launches[kernel] == 0
 
 
 @pytest.mark.cuda

@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of splatslam_tpu_torch
-loads neither jax nor the JAX package, and its entry point refuses to run
-on a machine without a GPU unless the caller names the device."""
+loads neither jax nor the JAX package, and its entry point and every public
+constructor refuse to run on a machine without a GPU unless the caller
+names the device."""
 
 import os
 import subprocess
@@ -58,3 +59,77 @@ def test_configs_outside_the_slice_fail_loudly(edit, match, monkeypatch):
         cfg[sec][key] = val
     with pytest.raises(NotImplementedError, match=match):
         check_slice(cfg)
+
+
+def _constructors():
+    """name -> callable(device) for every public constructor of the port
+    that places tensors."""
+    import numpy as np
+    from splatslam_tpu_torch import convert
+    from splatslam_tpu_torch.config import load_config
+    from splatslam_tpu_torch.mapping import camera, gaussians, mapper
+    from splatslam_tpu_torch.tracking import depth_video
+
+    cfg = load_config(os.path.join(REPO, "configs/Synthetic/smoke_oracle.yaml"),
+                      os.path.join(REPO, "configs/splat_slam.yaml"))
+    cfg["cam"]["H_out"], cfg["cam"]["W_out"] = 48, 64
+    cfg["tracking"]["buffer"] = 4
+    cfg["mapping"]["capacity"] = 256
+    gs = {k: v.numpy() for k, v in vars(
+        gaussians.make_state(8, device="cpu")).items()}
+    vs = {k: v.numpy() for k, v in vars(
+        depth_video.make_video_state(2, 16, 16, device="cpu")).items()}
+
+    class _Data:
+        def get_intrinsic(self):
+            return np.asarray([40.0, 40.0, 32.0, 24.0], np.float32)
+
+    def make_mapper(device):
+        video = depth_video.DepthVideo(cfg, device="cpu")
+        return mapper.Mapper(cfg, video, _Data(), device=device)
+
+    return {
+        "DepthVideo": lambda d: depth_video.DepthVideo(cfg, device=d),
+        "make_video_state": lambda d: depth_video.make_video_state(
+            2, 16, 16, device=d),
+        "Mapper": make_mapper,
+        "make_state": lambda d: gaussians.make_state(8, device=d),
+        "make_camera": lambda d: camera.make_camera(
+            0, np.zeros((4, 4, 3), np.float32), np.ones((4, 4), np.float32),
+            np.eye(4), device=d),
+        "gaussian_state_from_numpy": lambda d:
+            convert.gaussian_state_from_numpy(gs, device=d),
+        "video_state_from_numpy": lambda d:
+            convert.video_state_from_numpy(vs, device=d),
+    }
+
+
+@pytest.mark.parametrize("name", [
+    "DepthVideo", "make_video_state", "Mapper", "make_state", "make_camera",
+    "gaussian_state_from_numpy", "video_state_from_numpy"])
+def test_constructor_defaults_to_the_gpu(name, monkeypatch):
+    """device=None resolves through resolve_device: without a GPU it raises
+    the CLI's error instead of building on the CPU; "cpu" is still taken."""
+    import inspect
+    monkeypatch.chdir(REPO)
+    make = _constructors()[name]
+    obj = make("cpu")
+    tensors = [v for v in vars(obj).values() if torch.is_tensor(v)] or [
+        v for v in vars(getattr(obj, "st", getattr(obj, "state", obj))
+                        ).values() if torch.is_tensor(v)]
+    assert tensors and all(t.device.type == "cpu" for t in tensors)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make(None)
+    # and the default really is None
+    from splatslam_tpu_torch import convert
+    from splatslam_tpu_torch.mapping import camera, gaussians, mapper
+    from splatslam_tpu_torch.tracking import depth_video
+    fn = {"DepthVideo": depth_video.DepthVideo.__init__,
+          "make_video_state": depth_video.make_video_state,
+          "Mapper": mapper.Mapper.__init__,
+          "make_state": gaussians.make_state,
+          "make_camera": camera.make_camera,
+          "gaussian_state_from_numpy": convert.gaussian_state_from_numpy,
+          "video_state_from_numpy": convert.video_state_from_numpy}[name]
+    assert inspect.signature(fn).parameters["device"].default is None

@@ -78,7 +78,7 @@ def test_adam_step_matches_jax():
              for n in jG.PARAM_NAMES}
     lrs = dict(xyz=1e-3, f_dc=2.5e-3, f_rest=1e-4, opacity=0.05,
                scaling=6e-3, rotation=1e-3)
-    st_t = gaussian_state_from_numpy(_as_numpy(st_j))
+    st_t = gaussian_state_from_numpy(_as_numpy(st_j), device="cpu")
     for step in (1, 2):
         st_j = jG.adam_step(st_j, {k: jnp.asarray(v) for k, v in
                                    grads.items()}, lrs, jnp.asarray(step))
@@ -88,7 +88,7 @@ def test_adam_step_matches_jax():
 
 def test_densify_and_prune_shared_noise():
     st_j = _jax_state(seed=2)
-    st_t = gaussian_state_from_numpy(_as_numpy(st_j))
+    st_t = gaussian_state_from_numpy(_as_numpy(st_j), device="cpu")
     key = jax.random.PRNGKey(4)
     # the JAX function's own split noise, drawn the way it draws it
     k, noise = key, []
@@ -123,7 +123,7 @@ LRS = dict(xyz=9.6e-4, f_dc=2.5e-3, f_rest=1.25e-4, opacity=0.05,
 @pytest.mark.parametrize("use_ssim", [False, True], ids=["l1", "ssim"])
 def test_map_step_matches_jax(use_ssim):
     st_j = _jax_state(seed=5)
-    st_t = gaussian_state_from_numpy(_as_numpy(st_j))
+    st_t = gaussian_state_from_numpy(_as_numpy(st_j), device="cpu")
     cams = _cams()
     B = cams[0].shape[0]
     z2, z6 = np.zeros((B, 2), np.float32), np.zeros((B, 6), np.float32)
@@ -147,7 +147,7 @@ def test_map_step_matches_jax(use_ssim):
 
 def test_map_step_n_matches_jax():
     st_j = _jax_state(seed=6)
-    st_t = gaussian_state_from_numpy(_as_numpy(st_j))
+    st_t = gaussian_state_from_numpy(_as_numpy(st_j), device="cpu")
     cams = _cams(seed=7)
     B = cams[0].shape[0]
     z2, z6 = np.zeros((B, 2), np.float32), np.zeros((B, 6), np.float32)

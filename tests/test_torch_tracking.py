@@ -135,8 +135,9 @@ def test_video_kernels_match_jax_on_carried_state():
                          "poses": jnp.asarray(poses),
                          "disps": jnp.asarray(disps)})
     ts = video_state_from_numpy(
-        {f: np.asarray(getattr(st, f)) for f in st.__dataclass_fields__})
-    intr = np.asarray([6.0, 6.0, 4.0, 3.0], np.float32)
+        {f: np.asarray(getattr(st, f)) for f in st.__dataclass_fields__},
+        device="cpu")
+    intr =np.asarray([6.0, 6.0, 4.0, 3.0], np.float32)
     ii = np.asarray([0, 1, 2, 3, 4, 5, 2], np.int64)
     jj = np.asarray([1, 2, 3, 4, 5, 0, 2], np.int64)
     want = jdv.frame_distance_kernel(st.poses, st.disps, jnp.asarray(intr),

@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py                  # kernels + the main path (one card)
     python3 chip_smoke.py --kernels-only   # phases 1-3 only
+    python3 chip_smoke.py --learned-only   # phases 1-2 and 7-8 only
     python3 chip_smoke.py --kernels-only "--time-flags= |-fmad=true"
         # also time the kernels built with other nvcc flags (here: the
         # port's own and -fmad=true) and report how far their results move
@@ -29,7 +30,19 @@ Phases, each unguarded (any failure exits non-zero):
      kernels are also checked and timed at the density the path runs;
   6. a torch.profiler window over a few mapping iterations of that window
      (device time by kernel, device busy share);
-  7. the kernels JSON line, then the device JSON line last.
+  7. learned path: configs/Synthetic/smoke.yaml (DroidNet admission and
+     update rounds, loop closure, final BA, mapping, refine, every
+     evaluation and the trajectory filler) through the port's SLAM, uncut,
+     with the launch counts reset just before and read just after; then
+     B1/B2 against their plain versions on this run's final window;
+  8. network phase: the encoders on one 240x320 and one 320x640 frame, one
+     update-operator call on the learned run's last frontend graph and one
+     alt_corr chunk of it, timed with CUDA events (median of 10); the same
+     update-operator call in float32 against bf16; a torch.profiler window
+     over one frontend update_rounds call;
+  9. the kernels JSON line, then the device JSON line last.
+
+`--learned-only` skips phases 3-6 (and prints no kernels line).
 
 Exits non-zero without printing a result when no CUDA device is present,
 or when the port's package is not beside this script.
@@ -72,6 +85,12 @@ def smi(query, fmt="csv,noheader"):
         ["nvidia-smi", f"--query-gpu={query}", f"--format={fmt}"],
         capture_output=True, text=True, check=True).stdout.strip()
     return out.splitlines()[0]
+
+
+def refuse_jax():
+    for mod in ("jax", "splatslam_tpu"):
+        if mod in sys.modules:
+            raise SystemExit(f"{mod} was imported")
 
 
 def card_line():
@@ -400,11 +419,33 @@ def main_path(dev):
     return counts, slam
 
 
-def profile_phase(slam, iters=8):
-    """torch.profiler over `iters` mapping iterations of the final window:
+def profile_run(label, run):
+    """torch.profiler over one call of `run` (after one warm-up call):
     device kernel time by name and the device's busy share."""
-    import torch
     from torch.profiler import profile, ProfilerActivity
+    from torch.autograd import DeviceType
+    run()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        wall = time.perf_counter() - t0
+    # device-side kernel events only (operator rows repeat their kernels)
+    rows = sorted(((e.self_device_time_total, e.key, e.count)
+                   for e in prof.key_averages()
+                   if getattr(e, "device_type", None) == DeviceType.CUDA
+                   and e.self_device_time_total > 0), reverse=True)
+    busy = sum(r[0] for r in rows) / 1e6
+    log(f"profile: {label}: wall {wall * 1e3:.1f}"
+        f" ms, device busy {busy * 1e3:.1f} ms ({100 * busy / wall:.1f}%), "
+        f"{sum(r[2] for r in rows)} kernel launches")
+    for t, name, n in rows[:12]:
+        log(f"  {t / 1e3:9.2f} ms  x{n:<5d} {name[:90]}")
+
+
+def profile_phase(slam, iters=8):
+    """torch.profiler over `iters` mapping iterations of the final window."""
+    import torch
     from splatslam_tpu_torch.mapping import mapper as M
     mp = slam.mapper
     cams = [mp.viewpoints[k] for k in mp.current_window]
@@ -425,24 +466,162 @@ def profile_phase(slam, iters=8):
                      max_span=mp.max_span)
         torch.cuda.synchronize()
 
-    run()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        wall = time.perf_counter() - t0
-    from torch.autograd import DeviceType
-    # device-side kernel events only (operator rows repeat their kernels)
-    rows = sorted(((e.self_device_time_total, e.key, e.count)
-                   for e in prof.key_averages()
-                   if getattr(e, "device_type", None) == DeviceType.CUDA
-                   and e.self_device_time_total > 0), reverse=True)
-    busy = sum(r[0] for r in rows) / 1e6
-    log(f"profile: {iters} map iterations, {B} cameras: wall {wall * 1e3:.1f}"
-        f" ms, device busy {busy * 1e3:.1f} ms ({100 * busy / wall:.1f}%), "
-        f"{sum(r[2] for r in rows)} kernel launches")
-    for t, name, n in rows[:12]:
-        log(f"  {t / 1e3:9.2f} ms  x{n:<5d} {name[:90]}")
+    profile_run(f"{iters} map iterations, {B} cameras", run)
+
+
+LEARNED_WEIGHTS = "pretrained/droid_dba.msgpack"
+
+
+def learned_path(dev):
+    """configs/Synthetic/smoke.yaml, uncut, through the port's SLAM with the
+    learned tracker in its default dtype. Returns (launch counts of every
+    kernel in that run, the SLAM object)."""
+    import torch
+    from splatslam_tpu_torch import slam as slam_mod
+    from splatslam_tpu_torch.config import load_config
+    from splatslam_tpu_torch.models.droid_net import compute_dtype
+    from splatslam_tpu_torch.ops import raster_cuda, rasterizer as R
+
+    cfg = load_config(os.path.join(HERE, "configs/Synthetic/smoke.yaml"),
+                      os.path.join(HERE, "configs/splat_slam.yaml"))
+    cfg["data"]["output"] = os.path.join(HERE, "chiprun_out",
+                                         "smoke_output_learned")
+    cfg["verbose"] = False
+    cfg["eval_full_traj"] = True
+    if cfg["tracking"].get("oracle", False):
+        raise SystemExit("smoke.yaml is not a learned-tracking config")
+    mp, tr, tk = cfg["mapping"], cfg["mapping"]["Training"], cfg["tracking"]
+    log(f"learned path widths: {cfg['cam']['H_out']}x{cfg['cam']['W_out']} "
+        f"frames {cfg['synthetic']['n_frames']} buffer {tk['buffer']} "
+        f"warmup {tk['warmup']} capacity {mp['capacity']} raster_K "
+        f"{mp['raster_K']} window {tr['window_size']} mapping_itr_num "
+        f"{tr['mapping_itr_num']} init_itr_num {tr['init_itr_num']} "
+        f"final_refine_iters {mp['final_refine_iters']} network dtype "
+        f"{compute_dtype()}; cuts: none")
+
+    raster_cuda.reset_launch_counts()
+    for k in R.plain_calls:
+        R.plain_calls[k] = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    slam = slam_mod.SLAM(cfg, device=dev)
+    res = slam.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(raster_cuda.launches)
+    plain = dict(R.plain_calls)
+    log(f"learned path: weights {res['weights']} frames {res['n_frames']} "
+        f"keyframes {res['n_keyframes']} mapped "
+        f"{len(slam.mapper.viewpoints)} wall {wall:.1f} s fps "
+        f"{res['n_frames'] / wall:.3f}")
+    log("learned path phase timers (s): " + json.dumps(res["timers"]))
+    log(f"learned path: kf-ATE {res['ate_rmse']} full ATE "
+        f"{res['full_ate_rmse']} PSNR {res['psnr']} SSIM {res['ssim']} "
+        f"depth-L1 {res['depth_l1']} proxy depth-L1 {res['proxy_depth_l1']}")
+    log(f"launches on the learned path: {counts}; plain compositing calls "
+        f"{plain}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if res["weights"] != LEARNED_WEIGHTS:
+        raise SystemExit(f"learned path ran on weights {res['weights']!r}, "
+                         f"not {LEARNED_WEIGHTS}")
+    if slam.model.dtype != compute_dtype():
+        raise SystemExit(f"network dtype {slam.model.dtype}")
+    for name in ("ate_rmse", "full_ate_rmse", "psnr", "ssim", "depth_l1",
+                 "proxy_depth_l1"):
+        v = res[name]
+        if v is None or not math.isfinite(v):
+            raise SystemExit(f"learned path result {name} is not finite: {v}")
+    for name in ("motion_filter", "fe.rounds", "final_ba", "full_traj_eval"):
+        if name not in res["timers"]:
+            raise SystemExit(f"learned path never ran phase {name}")
+    if res["n_keyframes"] <= tk["warmup"]:
+        raise SystemExit(f"learned path admitted {res['n_keyframes']} "
+                         f"keyframes, warmup is {tk['warmup']}")
+    # the JAX suite's own absolute bound for the learned tracker
+    if res["ate_rmse"] > 0.25:
+        raise SystemExit(f"learned path kf-ATE {res['ate_rmse']} above 0.25")
+    if min(counts.values()) <= 0:
+        raise SystemExit(f"a kernel never launched on the learned path: "
+                         f"{counts}")
+    if any(plain.values()):
+        raise SystemExit(f"the learned path ran a plain compositor: {plain}")
+    return counts, slam
+
+
+def network_phase(slam, dev):
+    """Times of the tracking network's pieces at the learned path's shapes,
+    bf16 against float32 on one update-operator call, and a profile of one
+    frontend update_rounds call."""
+    import torch
+    from splatslam_tpu_torch.models.droid_net import normalize_images
+    from splatslam_tpu_torch.models.weights import load_droid_params
+    from splatslam_tpu_torch.ops import corr as corr_ops
+    from splatslam_tpu_torch.tracking import factor_graph as FG
+    from splatslam_tpu_torch.tracking.depth_video import reproject
+
+    model = slam.model
+    g = torch.Generator(device="cpu").manual_seed(0)
+    for H, W in ((240, 320), (320, 640)):
+        img = torch.randint(0, 256, (1, H, W, 3), generator=g,
+                            dtype=torch.uint8).to(dev)
+        with torch.no_grad():
+            x = normalize_images(img)
+            ms_f = cuda_ms(lambda: model.features(x))
+            ms_c = cuda_ms(lambda: model.context(x))
+        log(f"network ({model.dtype}): {H}x{W} frame: features {ms_f:.3f} ms,"
+            f" context {ms_c:.3f} ms")
+
+    graph = slam.frontend.graph
+    v = slam.video
+    s = v.state
+    E = len(graph.ii)
+    if E == 0:
+        raise SystemExit("the learned run's frontend graph has no edges")
+    ii, jj = graph._idx(graph.ii), graph._idx(graph.jj)
+    h, w = s.disps.shape[-2:]
+
+    def operator(m):
+        with torch.no_grad():
+            return FG.update_operator(m, s.poses, s.disps, v.intr0, s.fmaps,
+                                      s.inps, graph.net, graph.target, ii, jj)
+
+    ms_op = cuda_ms(lambda: operator(model))
+    with torch.no_grad():
+        pyr, ii_r, jj_r = FG.edge_frames(s.fmaps, ii, jj)
+        coords1, _ = reproject(s.poses, s.disps, v.intr0, ii, jj)
+        n = min(E, FG.corr_chunk(h, w))
+        ms_corr = cuda_ms(lambda: corr_ops.alt_corr(
+            pyr, ii_r[:n], jj_r[:n], coords1[:n]))
+    log(f"network ({model.dtype}): update_operator on the last frontend "
+        f"graph ({E} edges, {len(set(graph.ii.tolist()))} source keyframes, "
+        f"{h}x{w}) {ms_op:.3f} ms; alt_corr on one chunk of {n} edges "
+        f"{ms_corr:.3f} ms")
+
+    m32 = load_droid_params(slam.cfg["tracking"].get("pretrained", ""),
+                            device=dev, dtype=torch.float32)
+    out16, out32 = operator(model), operator(m32)
+    ms_op32 = cuda_ms(lambda: operator(m32))
+    # delta = target' - coords1, weight
+    d16, d32 = out16[1] - out16[6], out32[1] - out32[6]
+    d_err = (d16 - d32).abs().max().item()
+    w_err = (out16[2] - out32[2]).abs().max().item()
+    log(f"update_operator {model.dtype} against float32 ({ms_op32:.3f} ms): "
+        f"max|delta diff| {d_err:.4f} px at max|delta| "
+        f"{d32.abs().max().item():.3f}, mean|delta diff| "
+        f"{(d16 - d32).abs().mean().item():.5f}; max|weight diff| "
+        f"{w_err:.4f}")
+    for t in (d16, d32, out16[2], out32[2]):
+        if not bool(torch.isfinite(t).all()):
+            raise SystemExit("update_operator gave a non-finite value")
+
+    rounds = slam.frontend._rounds(slam.frontend.iters1)
+
+    def run():
+        graph.update_rounds(rounds, None, None, use_inactive=True)
+        torch.cuda.synchronize()
+
+    profile_run(f"one frontend update_rounds call ({len(rounds)} rounds, "
+                f"{E} edges)", run)
 
 
 def main(argv=None):
@@ -451,6 +630,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel phase")
+    ap.add_argument("--learned-only", action="store_true",
+                    help="only the build, the learned path and the network "
+                    "phase")
     ap.add_argument("--time-flags", default=None,
                     help="extra nvcc flags (space-separated; several sets "
                     "separated by '|', an empty set is the port's own "
@@ -466,9 +648,7 @@ def main(argv=None):
     sys.path.insert(0, HERE)
     os.chdir(HERE)
     import splatslam_tpu_torch  # noqa: F401  (fails outside the repo)
-    for mod in ("jax", "splatslam_tpu"):
-        if mod in sys.modules:
-            raise SystemExit(f"{mod} was imported")
+    refuse_jax()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -485,6 +665,12 @@ def main(argv=None):
             else set()
         time_flags.append([f for f in raster_cuda.NVCC_FLAGS if f not in drop]
                           + extra)
+    if args.learned_only:
+        _, learned = learned_path(dev)
+        kernel_phase("learned final window", *window_input(learned))
+        network_phase(learned, dev)
+        refuse_jax()
+        return 0
     inputs = kernel_input(dev)
     cloud = kernel_phase("kernel phase", *inputs, time_flags=time_flags)
     # one camera of the same cloud: the grid of the map initialisation and
@@ -499,6 +685,12 @@ def main(argv=None):
     counts, slam = main_path(dev)
     window = kernel_phase("final window", *window_input(slam))
     profile_phase(slam)
+    del slam
+    torch.cuda.empty_cache()
+    counts_learned, learned = learned_path(dev)
+    window_learned = kernel_phase("learned final window",
+                                  *window_input(learned))
+    network_phase(learned, dev)
     src = "splatslam_tpu_torch/csrc/composite.cu"
     replaces = {"composite_fwd": "splatslam_tpu/ops/raster_pallas.py:333",
                 "composite_bwd": "splatslam_tpu/ops/raster_pallas.py:387"}
@@ -507,13 +699,14 @@ def main(argv=None):
         w = window[name]
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces[name],
-            launches=counts[name], **m,
+            launches=counts[name], launches_learned=counts_learned[name],
+            **m,
             one_camera={k: v for k, v in single[name].items()
                         if k != "library_ms"},
-            window={k: v for k, v in w.items() if k != "library_ms"}))
-    for mod in ("jax", "splatslam_tpu"):
-        if mod in sys.modules:
-            raise SystemExit(f"{mod} was imported")
+            window={k: v for k, v in w.items() if k != "library_ms"},
+            learned_window={k: v for k, v in window_learned[name].items()
+                            if k != "library_ms"}))
+    refuse_jax()
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

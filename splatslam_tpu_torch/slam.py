@@ -3,40 +3,44 @@ of splatslam_tpu/slam.py; reference src/slam.py:34-261 +
 src/tracker.py:23-92, whose two processes already run in lock step at
 keyframe granularity).
 
-This slice runs oracle tracking (GT-flow targets) end to end: keyframe
-admission, DBA/DSPO bundle adjustment, proxy-depth fusion and map
+Runs the learned tracker (DroidNet admission and update rounds) or, with
+`tracking.oracle`, GT-flow targets, end to end: keyframe admission,
+DBA/DSPO bundle adjustment, loop closure, proxy-depth fusion and map
 deformation, the windowed 3DGS optimisation, the final BA and refine, and
-the kf-ATE, PSNR/SSIM and depth-L1 evaluations. A configuration outside
-the slice raises NotImplementedError.
+the kf-ATE, PSNR/SSIM, depth-L1 and full-trajectory evaluations. A
+configuration the port cannot run yet (a dataset on disk, a `files` or
+`dpt` mono prior) raises NotImplementedError.
 """
 
 from __future__ import annotations
 
 import os
+import queue
+import threading
 
 import numpy as np
 import torch
 
 from . import resolve_device
 from .datasets import get_dataset
+from .models.weights import load_droid_params
 from .mono_prior import MonoDepthProvider, PROVIDERS
 from .ops import lie
 from .tracking.depth_video import DepthVideo
 from .tracking.motion_filter import MotionFilter
 from .tracking.frontend import Frontend
 from .tracking.backend import Backend
+from .tracking.trajectory_filler import PoseTrajectoryFiller
 from .mapping.mapper import Mapper
 from .mapping.gaussians import save_ply
 from .utils.printer import Printer, FontColor
-from .utils.eval_traj import kf_traj_eval
+from .utils.eval_traj import kf_traj_eval, full_traj_eval
 from .utils.eval_render import eval_rendering
 from .utils.profiling import PhaseTimers
 
 
 def check_slice(cfg):
-    """Fail loudly on a configuration this slice of the port cannot run."""
-    if not cfg["tracking"].get("oracle", False):
-        raise NotImplementedError("learned tracker: not ported yet")
+    """Fail loudly on a configuration the port cannot run yet."""
     provider = cfg.get("mono_prior", {}).get(
         "provider", "oracle" if cfg.get("dataset") == "synthetic"
         else "files")
@@ -66,10 +70,15 @@ class SLAM:
         self.printer = Printer(len(self.stream), self.verbose)
         self.video = DepthVideo(cfg, device=self.device)
         self.mono = MonoDepthProvider(cfg, self.stream, self.save_dir)
+        # the tracker network, loaded once and shared by its four consumers
+        self.model = load_droid_params(
+            cfg["tracking"].get("pretrained", ""), device=self.device)
         self.motion_filter = MotionFilter(
-            self.video, cfg, mono_fn=lambda t, img: self.mono(int(t)))
-        self.frontend = Frontend(self.video, cfg)
-        self.online_ba = Backend(self.video, cfg)
+            self.model, self.video, cfg,
+            mono_fn=lambda t, img: self.mono(int(t)))
+        self.frontend = Frontend(self.model, self.video, cfg)
+        self.online_ba = Backend(self.model, self.video, cfg)
+        self.traj_filler = PoseTrajectoryFiller(self.model, self.video)
         self.mapper = None
         if not self.only_tracking:
             self.mapper = Mapper(cfg, self.video, self.stream,
@@ -85,48 +94,132 @@ class SLAM:
         if self.mapper is not None:
             self.mapper.timers = self.timers
         self.frontend.timers = self.timers
+        self.motion_filter.timers = self.timers
 
     def run(self):
         """Main loop (tracker.py:47-92 + the mapper handshake). Returns the
-        results dict of terminate()."""
-        intrinsic = np.asarray(self.stream.get_intrinsic(), np.float32)
-        prev_kf_idx = prev_ba_idx = number_of_kf = 0
-        T = self.timers
-        for i in range(len(self.stream)):
-            with T("data"):
-                timestamp, image, gt_depth, gt_c2w = self.stream[i]
-                img_u8 = (np.asarray(image) * 255.0).astype(np.uint8)
-                gt_pose = None
-                if gt_c2w is not None and np.isfinite(gt_c2w).all():
-                    gt_pose = lie.from_matrix_np(np.linalg.inv(gt_c2w))
-            with T("motion_filter"):
-                self.motion_filter.track(timestamp, img_u8, intrinsic,
-                                         gt_pose=gt_pose, gt_depth=gt_depth)
-            with T("frontend"):
-                self.frontend()
-            curr_kf_idx = self.video.counter - 1
-            if curr_kf_idx != prev_kf_idx and self.frontend.is_initialized:
-                number_of_kf += 1
-                if (self.enable_online_ba
-                        and curr_kf_idx >= prev_ba_idx + self.ba_freq):
-                    self.printer.print(
-                        f"Online BA at {curr_kf_idx}th keyframe, frame "
-                        f"{timestamp}", FontColor.TRACKER)
-                    with T("online_ba"):
-                        self.online_ba.dense_ba(2)
-                    prev_ba_idx = curr_kf_idx
-                if self.mapper is not None and \
-                        number_of_kf % self.every_kf == 0:
-                    with T("mapping"):
-                        self.mapper.process_keyframe(int(timestamp),
-                                                     curr_kf_idx)
-            prev_kf_idx = curr_kf_idx
-            self.printer.update_pbar()
+        results dict of terminate().
+
+        Frames come from a one-frame-lookahead prefetch thread: decoding or
+        rendering a frame is host numpy and would otherwise run serially
+        with the device's tracking work (the reference gets this overlap
+        from its process split, tracker.py:64 + datasets.py:170-216)."""
+        oracle = self.cfg["tracking"].get("oracle", False)
+        chunk = 1 if oracle else int(
+            self.cfg["tracking"]["motion_filter"].get("batch", 8))
+        stream = self.stream
+
+        def prefetch(q, stop):
+            try:
+                for k in range(len(stream)):
+                    if stop.is_set():
+                        break
+                    timestamp, image, gt_depth, gt_c2w = stream[k]
+                    img_u8 = (np.asarray(image) * 255.0).astype(np.uint8)
+                    # GT reaches the tracker in oracle mode only
+                    gt_pose = None
+                    if oracle and gt_c2w is not None \
+                            and np.isfinite(gt_c2w).all():
+                        gt_pose = lie.from_matrix_np(np.linalg.inv(gt_c2w))
+                    q.put((k, (timestamp, img_u8,
+                               gt_depth if oracle else None, gt_pose)))
+            except Exception as e:       # raised again by the consumer
+                q.put((-1, e))
+            q.put(None)
+
+        # the queue covers one admission chunk plus the lookahead
+        pre_q = queue.Queue(maxsize=2 if oracle else 2 + chunk)
+        stop = threading.Event()
+        threading.Thread(target=prefetch, args=(pre_q, stop),
+                         daemon=True).start()
+        try:
+            self._run_loop(pre_q, chunk)
+        finally:
+            stop.set()
+            while not pre_q.empty():     # unblock the producer
+                try:
+                    pre_q.get_nowait()
+                except queue.Empty:
+                    break
         return self.terminate()
+
+    def _post_frame(self, timestamp):
+        """After a frame's admission decision: frontend, online BA and
+        mapping when a keyframe came in."""
+        T = self.timers
+        with T("frontend"):
+            self.frontend()
+        curr_kf_idx = self.video.counter - 1
+        if curr_kf_idx != self._prev_kf_idx and self.frontend.is_initialized:
+            self._number_of_kf += 1
+            if (self.enable_online_ba
+                    and curr_kf_idx >= self._prev_ba_idx + self.ba_freq):
+                self.printer.print(
+                    f"Online BA at {curr_kf_idx}th keyframe, frame "
+                    f"{timestamp}", FontColor.TRACKER)
+                with T("online_ba"):
+                    self.online_ba.dense_ba(2)
+                self._prev_ba_idx = curr_kf_idx
+            if self.mapper is not None and \
+                    self._number_of_kf % self.every_kf == 0:
+                with T("mapping"):
+                    self.mapper.process_keyframe(int(timestamp), curr_kf_idx)
+        self._prev_kf_idx = curr_kf_idx
+        self.printer.update_pbar()
+
+    def _run_loop(self, pre_q, chunk):
+        """Per frame until the first keyframe exists and in oracle mode;
+        else in chunks of `chunk` frames whose admission is decided with
+        one host pull (motion_filter.admission_scan). Keyframe appends stay
+        interleaved with the frontend, so pose and disparity seeding sees
+        the order of the per-frame path."""
+        intrinsic = np.asarray(self.stream.get_intrinsic(), np.float32)
+        self._prev_kf_idx = self._prev_ba_idx = self._number_of_kf = 0
+        T = self.timers
+        mf = self.motion_filter
+        n = len(self.stream)
+        i, done = 0, False
+        while i < n and not done:
+            take = chunk if self.video.counter > 0 else 1
+            items = []
+            with T("data"):
+                for _ in range(min(take, n - i)):
+                    item = pre_q.get()
+                    if item is None:
+                        done = True
+                        break
+                    if item[0] == -1:
+                        raise item[1]
+                    items.append(item)
+            if not items:
+                break
+            if len(items) == 1:
+                idx, (timestamp, img_u8, gt_depth, gt_pose) = items[0]
+                with T("motion_filter"):
+                    mf.track(timestamp, img_u8, intrinsic, gt_pose=gt_pose,
+                             gt_depth=gt_depth)
+                self._post_frame(timestamp)
+                i = idx + 1
+                continue
+            with T("motion_filter"):
+                with T("mf.track_kernel"):
+                    imgs = torch.as_tensor(
+                        np.stack([it[1][1] for it in items]),
+                        device=self.device)
+                    batch = mf.decide_batch(imgs, len(items))
+            for k, (idx, (timestamp, _, _, gt_pose)) in enumerate(items):
+                if batch[0][k]:
+                    with T("motion_filter"):
+                        mf.commit_batch_frame(k, batch, timestamp, imgs,
+                                              intrinsic, gt_pose=gt_pose)
+                else:
+                    mf.count += 1
+                self._post_frame(timestamp)
+            i = items[-1][0] + 1
 
     def backend(self):
         self.printer.print("Final Global BA Triggered!", FontColor.TRACKER)
-        ba = Backend(self.video, self.cfg)
+        ba = Backend(self.model, self.video, self.cfg)
         ba.dense_ba(7)
         ba.dense_ba(12)
         self.printer.print("Final Global BA Done!", FontColor.TRACKER)
@@ -137,8 +230,9 @@ class SLAM:
         cfg = self.cfg
         T = self.timers
         res = dict(n_frames=len(self.stream), n_keyframes=self.video.counter,
-                   ate_rmse=None, psnr=None, ssim=None, depth_l1=None,
-                   proxy_depth_l1=None)
+                   ate_rmse=None, full_ate_rmse=None, psnr=None, ssim=None,
+                   depth_l1=None, proxy_depth_l1=None,
+                   weights=self.model.weights_source)
         if cfg["tracking"]["backend"]["final_ba"]:
             with T("final_ba"):
                 self.backend()
@@ -192,9 +286,15 @@ class SLAM:
             self.printer.print(f"depth eval failed: {e}", FontColor.ERROR)
 
         if cfg.get("eval_full_traj", True):
-            self.printer.print(
-                "full-trajectory eval: needs the learned trajectory filler, "
-                "not ported yet — skipped", FontColor.EVAL)
+            try:
+                with T("full_traj_eval"):
+                    _, full_stats = full_traj_eval(
+                        self.traj_filler, os.path.join(self.save_dir, "traj"),
+                        "full_traj", self.stream, self.printer)
+                res["full_ate_rmse"] = full_stats["rmse"]
+            except Exception as e:
+                self.printer.print(f"full traj eval failed: {e}",
+                                   FontColor.ERROR)
 
         self.printer.print("Metrics Evaluation Done!", FontColor.EVAL)
         if self.verbose or cfg.get("profiling", {}).get("timers", False):

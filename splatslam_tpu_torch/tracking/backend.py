@@ -9,7 +9,8 @@ from .factor_graph import FactorGraph
 
 
 class Backend:
-    def __init__(self, video, cfg):
+    def __init__(self, model, video, cfg):
+        self.model = model
         self.video = video
         self.oracle = cfg["tracking"].get("oracle", False)
         self.beta = cfg["tracking"]["beta"]
@@ -48,7 +49,8 @@ class Backend:
         max_factors = ((self.backend_radius + 2) * 2) * n
         if self.backend_normalize:
             self.video.normalize()
-        graph = FactorGraph(self.video, max_factors, oracle=self.oracle)
+        graph = FactorGraph(self.video, self.model, max_factors,
+                            oracle=self.oracle)
         n_edges = self.ba(t_start, t_end, steps, graph, self.backend_nms,
                           self.backend_radius, self.backend_thresh,
                           max_factors, enable_wq=enable_wq)
@@ -61,11 +63,13 @@ class Backend:
         """Loop closure with covisibility edges (backend.py:87-111)."""
         max_factors = 8 * self.loop_window
         t_start_loop = max(0, t_end - self.loop_window)
-        graph = FactorGraph(self.video, max_factors, oracle=self.oracle)
+        graph = FactorGraph(self.video, self.model, max_factors,
+                            oracle=self.oracle)
         if local_graph is not None:
             graph.ii = local_graph.ii.copy()
             graph.jj = local_graph.jj.copy()
             graph.age = local_graph.age.copy()
+            graph.net = local_graph.net
             graph.target = local_graph.target
             graph.weight = local_graph.weight
         left = max_factors - len(graph.ii)

@@ -5,11 +5,12 @@ Per-keyframe state lives in fixed-capacity tensors on the run's device
 (`VideoState`, buffer dimension first); the keyframe counter and dirty
 flags are host-side, since they drive control flow.
 
-This slice carries the oracle-tracking path only: the learned tracker's
-per-keyframe network fields (correlation features `fmaps`, GRU seeds
-`nets`, context `inps`) are neither computed nor allocated — the oracle
-bundle adjustment never reads them. When the learned slice adds them,
-`fmaps` are stored in bf16 as in the JAX package.
+Layout: geometric fields are channel-last as in the JAX package (disps
+(B,h,w), flow targets (E,h,w,2)); the tracking network's per-keyframe
+fields — correlation features `fmaps` (bf16 always, as in the JAX package),
+GRU seeds `nets` and context `inps` — are channel-first (B,128,h,w), the
+layout the network's convolutions take, so no edge gather ever permutes
+them. `convert.video_state_from_numpy` permutes a JAX state across.
 
 Geometric kernels of the reference CUDA ops, in plain PyTorch:
   * frame_distance — droid_kernels.cu frame_distance (flow-distance metric)
@@ -26,7 +27,7 @@ import torch
 
 from .. import resolve_device
 from ..ops import lie, projective as pops, ba as ba_ops
-from ..ops.upsample import upsample_disp_uniform
+from ..ops.upsample import upsample_disp, upsample_disp_uniform
 
 # the CUDA kernels use 0.25 (droid_kernels.cu:26); python ops use 0.2
 CUDA_MIN_DEPTH = 0.25
@@ -47,6 +48,9 @@ class VideoState:
     depth_shift: torch.Tensor    # (B,) f32
     valid_depth_mask: torch.Tensor        # (B, H, W) bool
     valid_depth_mask_small: torch.Tensor  # (B, h, w) bool
+    fmaps: torch.Tensor          # (B, 128, h, w) bf16 — correlation features
+    nets: torch.Tensor           # (B, 128, h, w) f32 — GRU hidden seed
+    inps: torch.Tensor           # (B, 128, h, w) f32 — context features
     gt_poses: torch.Tensor       # (B, 7) f32 — GT w2c (oracle/eval only)
     gt_disps: torch.Tensor       # (B, h, w) f32 — GT disparity (oracle)
 
@@ -72,6 +76,10 @@ def make_video_state(buffer: int, H: int, W: int, down: int = 8,
                                      device=device),
         valid_depth_mask_small=torch.zeros((buffer, h, w), dtype=torch.bool,
                                            device=device),
+        fmaps=torch.zeros((buffer, 128, h, w), dtype=torch.bfloat16,
+                          device=device),
+        nets=torch.zeros((buffer, 128, h, w), **f32),
+        inps=torch.zeros((buffer, 128, h, w), **f32),
         gt_poses=lie.identity((buffer,), device=device),
         gt_disps=torch.ones((buffer, h, w), **f32))
 
@@ -240,20 +248,21 @@ class DepthVideo:
     # -- item access ------------------------------------------------------
 
     def append(self, timestamp, image, pose, disp, mono_depth, intrinsics,
-               gt_pose=None, gt_depth=None):
+               fmap=None, net=None, inp=None, gt_pose=None, gt_depth=None):
         """Add a keyframe (depth_video.py:75-134 semantics)."""
         idx = self.counter
         self.set_item(idx, timestamp, image, pose, disp, mono_depth,
-                      intrinsics, gt_pose, gt_depth)
+                      intrinsics, fmap, net, inp, gt_pose, gt_depth)
         self.counter = idx + 1
 
     @torch.no_grad()
     def set_item(self, idx, timestamp, image, pose=None, disp=None,
-                 mono_depth=None, intrinsics=None, gt_pose=None,
-                 gt_depth=None):
+                 mono_depth=None, intrinsics=None, fmap=None, net=None,
+                 inp=None, gt_pose=None, gt_depth=None):
         """Write one keyframe's given fields. mono_depth/gt_depth are
         full-res depth (or already 1/8-res disparity); stored as 1/8-res
-        disparity."""
+        disparity. fmap/net/inp are (128,h,w) tensors; fmap is stored in
+        bf16."""
         s = self.state
         s.timestamp[idx] = float(timestamp)
         h, w = s.disps.shape[1:]
@@ -264,7 +273,8 @@ class DepthVideo:
                                                               h, w)
 
         if image is not None:
-            s.images[idx] = self._t(image, torch.uint8)
+            s.images[idx] = image.to(self.device) if torch.is_tensor(image) \
+                else self._t(image, torch.uint8)
         if pose is not None:
             s.poses[idx] = self._t(pose)
         if disp is not None:
@@ -273,6 +283,9 @@ class DepthVideo:
             s.mono_disps[idx] = disp_of(mono_depth)
         if intrinsics is not None:
             s.intrinsics[idx] = self._t(intrinsics)
+        for field, v in ((s.fmaps, fmap), (s.nets, net), (s.inps, inp)):
+            if v is not None:
+                field[idx] = v.to(field.dtype)
         if gt_pose is not None:
             s.gt_poses[idx] = self._t(gt_pose)
         if gt_depth is not None:
@@ -303,10 +316,18 @@ class DepthVideo:
         return d.cpu().numpy()
 
     @torch.no_grad()
-    def upsample(self, ix):
-        """Uniform (zero-mask) 8× upsampling of frames ix (oracle path)."""
+    def upsample(self, ix, upmask=None):
+        """8× upsampling of frames ix: convex with the network's mask
+        (len(ix),576,h,w), uniform (zero mask) when upmask is None (oracle
+        path)."""
         ix = self._idx(ix)
-        self.state.disps_up[ix] = upsample_disp_uniform(self.state.disps[ix])
+        d = self.state.disps[ix]
+        self.state.disps_up[ix] = upsample_disp_uniform(d) if upmask is None \
+            else upsample_disp(d, upmask.float().permute(0, 2, 3, 1))
+
+    def get_nets(self, ii):
+        """GRU hidden seeds of the source keyframes of edges ii."""
+        return self.state.nets[self._idx(ii)]
 
     @torch.no_grad()
     def normalize(self):

@@ -1,16 +1,20 @@
-"""Factor graph: edge bookkeeping on the host, oracle update rounds on the
-device (counterpart of splatslam_tpu/tracking/factor_graph.py).
+"""Factor graph: edge bookkeeping on the host, the update operator and the
+update rounds on the device (counterpart of
+splatslam_tpu/tracking/factor_graph.py).
 
 Edge sets (ii, jj, age) live in host numpy — they drive control flow
 (NMS, dedup, proximity proposals), as in the reference
-(factor_graph.py:337-397). Per-edge targets and weights are tensors on the
-video's device, exactly as many rows as edges.
+(factor_graph.py:337-397). Per-edge tensors — the GRU hidden state `net`
+(E,128,h,w), the flow targets and weights (E,h,w,2) — live on the video's
+device with exactly as many rows as edges: the JAX package pads them into
+pools only to keep XLA's shapes fixed.
 
-This slice carries the oracle update only: flow targets are the
-ground-truth reprojection of each edge (gt poses and gt disparities) with
-unit weights on pixels with GT depth, followed by the same DSPO bundle
-adjustment the learned update feeds. The learned update operator (DroidNet
-GRU over a correlation pyramid) is not ported yet.
+The update operator — reproject → local correlation → ConvGRU → delta and
+weight heads → GraphAgg — is `update_operator`; it never holds the
+O(N·(hw)²) correlation volume of more edges than `corr_chunk` allows. With
+`oracle=True` the flow targets are instead the ground-truth reprojection of
+each edge with unit weights on pixels with GT depth. Either way the targets
+feed the same DSPO bundle adjustment.
 """
 
 from __future__ import annotations
@@ -19,18 +23,74 @@ import numpy as np
 import torch
 
 from ..ops import ba as ba_ops
+from ..ops import corr as corr_ops
+from ..ops import projective as pops
 from .depth_video import (reproject, depth_filter, frame_distance, nanmedian)
-from ..ops.upsample import upsample_disp_uniform
+from ..ops.upsample import upsample_disp, upsample_disp_uniform
+
+# bytes of level-0 correlation volume (N·(h·w)²·4) one alt_corr call may hold
+CORR_CHUNK_BYTES = 256 << 20
+
+
+def corr_chunk(h: int, w: int) -> int:
+    """Edges per alt_corr call, sized by the level-0 volume's bytes."""
+    return max(1, CORR_CHUNK_BYTES // (4 * (h * w) ** 2))
+
+
+def edge_frames(fmaps, ii, jj, num_levels: int = 4):
+    """The feature pyramid of just the frames the edges touch, and the
+    edges' rows in it: (pyramid, ii_rows, jj_rows). Constant while the edge
+    set and the features are."""
+    frames = torch.unique(torch.cat([ii, jj]))
+    pyr = corr_ops.build_fmap_pyramid(fmaps[frames], num_levels)
+    return pyr, torch.searchsorted(frames, ii), torch.searchsorted(frames, jj)
+
+
+def update_operator(model, poses, disps, intrinsics, fmaps, inps, net,
+                    target, ii, jj, pyramid=None):
+    """One DROID update over an edge set (reference factor_graph.py:226-250).
+
+    poses (B,7); disps (B,h,w); intrinsics (4,); fmaps (B,128,h,w) bf16;
+    inps (B,128,h,w); net (N,128,h,w); target (N,h,w,2); ii/jj (N,) long.
+    pyramid: edge_frames(fmaps, ii, jj), when the caller holds it.
+    Returns (net', target', weight (N,h,w,2), eta (M,h,w), upmask
+    (M,576,h,w), uniq (M,) = unique(ii), coords1), all but net' and upmask
+    float32."""
+    h, w = disps.shape[-2:]
+    coords1, _ = reproject(poses, disps, intrinsics, ii, jj)
+    coords0 = pops.coords_grid(h, w, device=disps.device)
+    motn = torch.cat([coords1 - coords0, target - coords1], -1)
+    motn = motn.clamp(-64.0, 64.0).permute(0, 3, 1, 2)
+
+    pyr, ii_r, jj_r = pyramid if pyramid is not None else edge_frames(
+        fmaps, ii, jj)
+    step = corr_chunk(h, w)
+    corr = torch.cat([
+        corr_ops.alt_corr(pyr, ii_r[c:c + step], jj_r[c:c + step],
+                          coords1[c:c + step])
+        for c in range(0, ii.shape[0], step)])
+    net, delta, weight = model.update_step(net, inps[ii], corr, motn)
+
+    uniq, ix = torch.unique(ii, return_inverse=True)
+    eta, upmask = model.update_agg(net, ix, uniq.shape[0])
+    target = coords1 + delta.float().permute(0, 2, 3, 1)
+    weight = weight.float().permute(0, 2, 3, 1).contiguous()
+    return net, target, weight, eta.float(), upmask, uniq, coords1
 
 
 class FactorGraph:
-    def __init__(self, video, max_factors=-1, upsample=True, oracle=True):
-        if not oracle:
-            raise NotImplementedError("learned tracker: not ported yet")
+    """Mirrors the reference FactorGraph API. `model` is the DroidNet the
+    learned update runs (unused when oracle); tensors live on the video's
+    device."""
+
+    def __init__(self, video, model, max_factors=-1, upsample=True,
+                 oracle=False):
         self.video = video
+        self.model = model
         self.device = video.device
         self.max_factors = max_factors
         self.upsample_flag = upsample
+        self.oracle = oracle
         self.h = video.H // video.down
         self.w = video.W // video.down
         self.ii = np.zeros(0, np.int64)
@@ -39,11 +99,14 @@ class FactorGraph:
         z = lambda: torch.zeros((0, self.h, self.w, 2), device=self.device)
         self.target, self.weight = z(), z()
         self.target_inac, self.weight_inac = z(), z()
+        # per-edge GRU state; the oracle update has none
+        self.net = None if oracle else torch.zeros(
+            (0, 128, self.h, self.w), device=self.device)
         self.ii_inac = np.zeros(0, np.int64)
         self.jj_inac = np.zeros(0, np.int64)
         self.ii_bad = np.zeros(0, np.int64)
         self.jj_bad = np.zeros(0, np.int64)
-        # per-keyframe damping; the oracle update never rewrites it
+        # per-keyframe damping; only the learned update rewrites it
         self.damping_maps = 1e-6 * torch.ones(
             (video.buffer, self.h, self.w), device=self.device)
 
@@ -77,6 +140,8 @@ class FactorGraph:
         tgt, _ = self.video.reproject(ii, jj)
         self.target = torch.cat([self.target, tgt])
         self.weight = torch.cat([self.weight, torch.zeros_like(tgt)])
+        if self.net is not None:
+            self.net = torch.cat([self.net, self.video.get_nets(ii)])
         self.ii = np.concatenate([self.ii, ii])
         self.jj = np.concatenate([self.jj, jj])
         self.age = np.concatenate([self.age, np.zeros_like(ii)])
@@ -94,12 +159,23 @@ class FactorGraph:
             self.jj_inac = np.concatenate([self.jj_inac, self.jj[mask]])
         self.target = self.target[keep]
         self.weight = self.weight[keep]
+        if self.net is not None:
+            self.net = self.net[keep]
         self.ii = self.ii[~mask]
         self.jj = self.jj[~mask]
         self.age = self.age[~mask]
 
+    def filter_edges(self):
+        """Remove edges with low confidence (factor_graph.py:83-90)."""
+        conf = self.weight.mean(dim=(1, 2, 3)).cpu().numpy()
+        mask = (np.abs(self.ii - self.jj) > 2) & (conf < 0.001)
+        self.ii_bad = np.concatenate([self.ii_bad, self.ii[mask]])
+        self.jj_bad = np.concatenate([self.jj_bad, self.jj[mask]])
+        self.rm_factors(mask, store=False)
+
     def clear_edges(self):
-        self.__init__(self.video, self.max_factors, self.upsample_flag)
+        self.__init__(self.video, self.model, self.max_factors,
+                      self.upsample_flag, self.oracle)
 
     @torch.no_grad()
     def rm_keyframe(self, ix):
@@ -133,7 +209,7 @@ class FactorGraph:
         self.jj = np.where(self.jj >= ix, self.jj - 1, self.jj)
         self.rm_factors(m, store=False)
 
-    # -- the oracle update (factor_graph.py:703-752) ------------------------
+    # -- the update operator (factor_graph.py:226-270) -----------------------
 
     def _oracle_targets(self):
         """GT-flow targets of the active edges, unit weight on pixels with
@@ -144,6 +220,23 @@ class FactorGraph:
                                   ii, jj)
         has_depth = (s.gt_disps[ii] > 1e-8)[..., None]
         return coords, (valid * has_depth).expand_as(coords).contiguous()
+
+    def _learned_update(self, poses, disps, pyramid=None):
+        """update_operator on the active edges at the given poses and
+        disparities; writes net/target/weight and the touched keyframes'
+        damping. Returns (uniq, upmask)."""
+        s = self.video.state
+        ii, jj = self._idx(self.ii), self._idx(self.jj)
+        self.net, self.target, self.weight, eta, upmask, uniq, _ = \
+            update_operator(self.model, poses, disps, self.video.intr0,
+                            s.fmaps, s.inps, self.net, self.target, ii, jj,
+                            pyramid)
+        self.damping_maps[uniq] = eta
+        return uniq, upmask
+
+    def _pyramid(self):
+        return edge_frames(self.video.state.fmaps, self._idx(self.ii),
+                           self._idx(self.jj))
 
     def _inactive(self, t0, use_inactive):
         if not use_inactive:
@@ -157,37 +250,49 @@ class FactorGraph:
     @torch.no_grad()
     def update(self, t0=None, t1=None, itrs=2, use_inactive=False, EP=1e-7,
                motion_only=False, opt_type="pose_depth"):
-        """One oracle update + BA through the DSPO dispatch
-        (DepthVideo.ba), then uniform upsampling of the touched frames."""
+        """One update (learned operator, or oracle targets) + BA through
+        the DSPO dispatch (DepthVideo.ba), then upsampling of the touched
+        frames (convex with the network's mask, uniform when oracle)."""
         if self.ii.shape[0] == 0:
             return
-        self.target, self.weight = self._oracle_targets()
+        s = self.video.state
+        upmask = None
+        if self.oracle:
+            self.target, self.weight = self._oracle_targets()
+        else:
+            _, upmask = self._learned_update(s.poses, s.disps)
         if t0 is None:
             t0 = max(1, int(self.ii.min()) + 1)
         ii_in, jj_in, t_in, w_in = self._inactive(t0, use_inactive)
         ii = np.concatenate([ii_in, self.ii])
         jj = np.concatenate([jj_in, self.jj])
-        damping = torch.full((len(np.unique(ii)), self.h, self.w), 1e-4,
-                             device=self.device)
+        uniq_all = np.unique(ii)
+        if self.oracle:
+            damping = torch.full((len(uniq_all), self.h, self.w), 1e-4,
+                                 device=self.device)
+        else:
+            damping = 0.2 * self.damping_maps[self._idx(uniq_all)] + EP
         self.video.ba(torch.cat([t_in, self.target]),
                       torch.cat([w_in, self.weight]), damping, ii, jj, t0,
                       t1, iters=itrs, lm=1e-4, ep=0.1,
                       motion_only=motion_only, opt_type=opt_type)
         if self.upsample_flag:
-            self.video.upsample(np.unique(self.ii))
+            self.video.upsample(np.unique(self.ii), upmask)
         self.age += 1
 
     @torch.no_grad()
     def update_rounds(self, opt_types, t0=None, t1=None, use_inactive=False,
                       EP=1e-7, upsample=True, cull_pair=None,
                       cull_beta=0.3):
-        """len(opt_types) oracle update rounds, each a DSPO stage-1
+        """len(opt_types) update rounds (_fused_rounds of the JAX package):
+        each runs the update operator on the active edges (oracle: the GT
+        targets, constant over the rounds), then a DSPO stage-1
         (pose_depth: 2 DBA iterations) or stage-2 (depth_scale: multiview
-        mask + scale/shift refit, then 2 stage-2 iterations) round over
-        the active edges plus the inactive edges near the window
-        (_fused_rounds with use_net=False). Then the touched disparities
-        are upsampled once. cull_pair=(i, j): returns the bidirectional
-        keyframe-cull distance d(i, j) on the post-round state."""
+        mask + scale/shift refit, then 2 stage-2 iterations) step over the
+        active edges plus the inactive edges near the window. Then the
+        touched disparities are upsampled once, with the last round's mask.
+        cull_pair=(i, j): returns the bidirectional keyframe-cull distance
+        d(i, j) on the post-round state."""
         if len(self.ii) == 0:
             return None
         v = self.video
@@ -206,15 +311,20 @@ class FactorGraph:
                                   int(t0), int(t1), self.device)
         mv_cfg = v.cfg["tracking"]["multiview_filter"]
         intr = v.intr0
-        eta = 0.2 * self.damping_maps[edges.kx] + EP
 
-        # the oracle targets depend on GT only: constant over the rounds
-        self.target, self.weight = self._oracle_targets()
-        target_all = torch.cat([self.target, t_in])
-        weight_all = torch.cat([self.weight, w_in])
+        upmask = None
+        if self.oracle:
+            self.target, self.weight = self._oracle_targets()
+        else:
+            pyramid = self._pyramid()
 
         poses, disps = s.poses, s.disps
         for opt_type in opt_types:
+            if not self.oracle:
+                _, upmask = self._learned_update(poses, disps, pyramid)
+            target_all = torch.cat([self.target, t_in])
+            weight_all = torch.cat([self.weight, w_in])
+            eta = 0.2 * self.damping_maps[edges.kx] + EP
             if opt_type != "depth_scale":
                 poses, disps = ba_ops.dba(
                     poses, disps, intr, target_all, weight_all, eta,
@@ -265,8 +375,7 @@ class FactorGraph:
         s.poses, s.disps = poses, disps
 
         if upsample and self.upsample_flag:
-            uniq = self._idx(np.unique(self.ii))
-            s.disps_up[uniq] = upsample_disp_uniform(disps[uniq])
+            v.upsample(np.unique(self.ii), upmask)
         self.age += len(opt_types)
         if cull_pair is None:
             return None
@@ -275,13 +384,37 @@ class FactorGraph:
             frame_distance(poses, disps, intr, ci, cj, cull_beta)
             + frame_distance(poses, disps, intr, cj, ci, cull_beta))[0])
 
+    @torch.no_grad()
+    def update_rounds_motion_only(self, rounds, t0, t1):
+        """`rounds` motion-only update rounds (update operator + 2 pose-only
+        Gauss-Newton steps): poses in [t0, t1) move, everything else is
+        frozen. The trajectory filler's refinement
+        (trajectory_filler.py:85-90)."""
+        if len(self.ii) == 0:
+            return
+        s = self.video.state
+        edges = ba_ops.make_edges(self.ii, self.jj, int(t0), int(t1),
+                                  self.device)
+        pyramid = self._pyramid()
+        poses = s.poses
+        for _ in range(rounds):
+            self._learned_update(poses, s.disps, pyramid)
+            poses, _ = ba_ops.dba(poses, s.disps, self.video.intr0,
+                                  self.target, self.weight, None, None,
+                                  edges, iters=2, motion_only=True)
+        s.poses = poses
+        self.age += rounds
+
     def update_lowmem(self, t0=None, t1=None, itrs=2, use_inactive=False,
                       EP=1e-7, steps=8, enable_wq=True, motion_only=False):
         """Global-BA update loop (factor_graph.py:273-323): `steps` rounds
-        alternating stage 1 and (with enable_wq) stage 2."""
+        alternating stage 1 and (with enable_wq) stage 2; motion_only
+        routes to the pose-only rounds."""
         if motion_only:
-            raise NotImplementedError(
-                "motion-only rounds (trajectory filler): not ported yet")
+            if t1 is None:
+                t1 = self.video.counter
+            self.update_rounds_motion_only(steps, t0 or 0, t1)
+            return
         opt_types = tuple(
             "pose_depth" if (step % 2 == 0 or not enable_wq)
             else "depth_scale" for step in range(steps))

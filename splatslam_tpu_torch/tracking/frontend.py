@@ -22,8 +22,9 @@ def _seed_next(video, t1, mean_win):
 
 
 class Frontend:
-    def __init__(self, video, cfg):
+    def __init__(self, model, video, cfg):
         self.video = video
+        self.model = model
         self.t1 = 0
         self.is_initialized = False
         tr = cfg["tracking"]
@@ -40,8 +41,9 @@ class Frontend:
         self.frontend_radius = fe["radius"]
         self.frontend_max_factors = fe["max_factors"]
         self.enable_loop = fe["enable_loop"]
-        self.loop_closing = Backend(video, cfg)
-        self.graph = FactorGraph(video, max_factors=self.frontend_max_factors,
+        self.loop_closing = Backend(model, video, cfg)
+        self.graph = FactorGraph(video, model,
+                                 max_factors=self.frontend_max_factors,
                                  oracle=tr.get("oracle", False))
         self.last_loop_t = -1
         self.timers = PhaseTimers()   # replaced by SLAM's shared timers

@@ -2,8 +2,8 @@
 (counterpart of splatslam_tpu/utils/eval_traj.py; replaces the reference's
 `evo` dependency, src/utils/eval_traj.py:20-175). Host numpy.
 
-The trajectory figure of the JAX package is not produced here (panels are
-not ported yet); the metrics file and the aligned trajectory are.
+The trajectory figures of the JAX package are not produced here (panels are
+not ported yet); the metrics files and the aligned trajectory are.
 """
 
 from __future__ import annotations
@@ -79,3 +79,20 @@ def kf_traj_eval(npz_path, traj_dir, name, stream, printer=None):
     if printer:
         printer.print(f"kf ate rmse: {stats['rmse']:.4f} (scale {s:.4f})")
     return stats, s, r, t
+
+
+def full_traj_eval(traj_filler, traj_dir, name, stream, printer=None):
+    """Fill the non-keyframe poses, then evaluate every frame
+    (eval_traj.py:143-175). Returns (c2w (n,4,4), stats)."""
+    from ..ops import lie
+    c2w = lie.inv_matrix_np(np.asarray(traj_filler(stream)))
+    gt, keep = _gt_c2w_list(stream, np.arange(len(stream)))
+    est_xyz = c2w[keep][:, :3, 3]
+    gt_xyz = np.stack([g[:3, 3] for g in gt])
+    stats, _ = ape_stats(est_xyz, gt_xyz, correct_scale=True)
+    os.makedirs(traj_dir, exist_ok=True)
+    with open(os.path.join(traj_dir, f"metrics_{name}.txt"), "w") as f:
+        f.write(json.dumps(stats, indent=2))
+    if printer:
+        printer.print(f"full ate rmse: {stats['rmse']:.4f}")
+    return c2w, stats

@@ -17,7 +17,11 @@ torch and the port only, so it runs on a GPU machine without jax:
     1e-4 of each field's largest magnitude: the conic fields sum terms
     ~1e3 times the opacity field's over every pixel of the image;
   * rasterize_batch and its gradients on the GPU (kernels) against the
-    CPU (plain versions), same tolerances.
+    CPU (plain versions), same tolerances;
+  * the learned tracker in float32 (TF32 off) on the GPU against the CPU:
+    one update_operator call on a 6-keyframe graph (atol 2e-4 / rtol 1e-3,
+    the network parity tolerance) and one decide_batch chunk of 8 frames
+    (equal decisions, deltas within 5e-3).
 """
 
 import numpy as np
@@ -160,3 +164,98 @@ def test_rasterize_batch_gpu_matches_cpu():
     for g, w in zip(got, want):
         torch.testing.assert_close(g.detach().cpu(), w.detach(), rtol=1e-3,
                                    atol=1e-4)
+
+
+# -- the learned tracker (plain PyTorch on both devices) ----------------------
+
+def _tracker_cfg(thresh):
+    return {
+        "dataset": "synthetic",
+        "synthetic": {"n_frames": 12, "seed": 7, "motion_scale": 5.0},
+        "cam": {"H": 64, "W": 96, "fx": 60.0, "fy": 60.0, "cx": 47.5,
+                "cy": 31.5, "H_edge": 0, "W_edge": 0, "H_out": 64,
+                "W_out": 96},
+        "tracking": {"oracle": False, "buffer": 16, "beta": 0.6, "warmup": 5,
+                     "mono_thres": False,
+                     "motion_filter": {"thresh": thresh},
+                     "multiview_filter": {"thresh": 0.01, "visible_num": 2},
+                     "backend": {"BA_type": "DSPO"}},
+    }
+
+
+def _tracker(dev, thresh):
+    """The Synthetic frames, the checkpoint's float32 network and a filter
+    on `dev` holding frame 0."""
+    import os
+    from splatslam_tpu_torch.datasets import Synthetic
+    from splatslam_tpu_torch.models.weights import load_droid_params
+    from splatslam_tpu_torch.tracking.depth_video import DepthVideo
+    from splatslam_tpu_torch.tracking.motion_filter import MotionFilter
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = _tracker_cfg(thresh)
+    ds = Synthetic(cfg)
+    model = load_droid_params(
+        os.path.join(repo, "pretrained/droid_dba.msgpack"), device=dev,
+        dtype=torch.float32)
+    video = DepthVideo(cfg, device=dev)
+    mf = MotionFilter(model, video, cfg,
+                      mono_fn=lambda t, img: ds[int(t)][2])
+    frames = np.stack([(np.asarray(ds[k][1]) * 255.0).astype(np.uint8)
+                       for k in range(len(ds))])
+    intr = np.asarray(ds.get_intrinsic())
+    assert mf.track(0.0, frames[0], intr)
+    return ds, model, video, mf, frames, intr
+
+
+@pytest.mark.cuda
+def test_update_operator_gpu_matches_cpu():
+    _need_cuda()
+    from splatslam_tpu_torch.ops import lie
+    from splatslam_tpu_torch.tracking.factor_graph import (FactorGraph,
+                                                           update_operator)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        ds, model, video, mf, frames, intr = _tracker(dev, -1.0)
+        for k in range(1, 6):
+            assert mf.track(float(k), frames[k], intr)
+        s = video.state
+        # GT poses relative to frame 0 and GT disparities: real flow
+        for k in range(6):
+            s.poses[k] = torch.as_tensor(lie.from_matrix_np(
+                np.linalg.inv(ds[k][3]) @ ds[0][3]), device=dev)
+            s.disps[k] = torch.as_tensor(
+                1.0 / np.maximum(ds[k][2][3::8, 3::8][:8, :12], 1e-6),
+                device=dev)
+        g = FactorGraph(video, model, max_factors=48)
+        g.add_neighborhood_factors(0, 6, r=2)
+        with torch.no_grad():
+            outs[dev] = update_operator(
+                model, s.poses, s.disps, video.intr0, s.fmaps, s.inps, g.net,
+                g.target, g._idx(g.ii), g._idx(g.jj))
+    names = ("net", "target", "weight", "eta", "upmask", "uniq", "coords1")
+    for name, c, k in zip(names, outs["cpu"], outs["cuda"]):
+        assert k.device.type == "cuda", name
+        torch.testing.assert_close(k.cpu(), c, atol=2e-4, rtol=1e-3,
+                                   msg=lambda m: f"{name}: {m}")
+    tgt, c1 = outs["cuda"][1], outs["cuda"][6]
+    assert float((tgt - c1).abs().max()) > 1e-2
+
+
+@pytest.mark.cuda
+def test_decide_batch_gpu_matches_cpu():
+    _need_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    got = {}
+    for dev in ("cpu", "cuda"):
+        _, _, video, mf, frames, _ = _tracker(dev, 0.5)
+        imgs = torch.as_tensor(frames[1:9], device=dev)
+        admits, deltas, gmaps, nets, inps = mf.decide_batch(imgs, 8)
+        assert gmaps.device.type == dev
+        got[dev] = (admits.tolist(), np.asarray(deltas))
+    assert got["cuda"][0] == got["cpu"][0]
+    assert any(got["cpu"][0]) and not all(got["cpu"][0])
+    np.testing.assert_allclose(got["cuda"][1], got["cpu"][1], atol=5e-3,
+                               rtol=5e-3)

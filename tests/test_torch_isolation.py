@@ -41,8 +41,18 @@ def test_run_without_device_raises_when_no_gpu(monkeypatch):
         run.main([os.path.join(REPO, "configs/Synthetic/smoke_oracle.yaml")])
 
 
+def test_learned_smoke_config_is_inside_the_slice(monkeypatch):
+    """check_slice takes the system's own main path, learned tracking."""
+    monkeypatch.chdir(REPO)
+    from splatslam_tpu_torch.config import load_config
+    from splatslam_tpu_torch.slam import check_slice
+    cfg = load_config(os.path.join(REPO, "configs/Synthetic/smoke.yaml"),
+                      os.path.join(REPO, "configs/splat_slam.yaml"))
+    assert not cfg["tracking"].get("oracle", False)
+    check_slice(cfg)
+
+
 @pytest.mark.parametrize("edit,match", [
-    (("tracking", "oracle", False), "learned tracker: not ported yet"),
     (("mono_prior", "provider", "dpt"), "not ported yet"),
     (("dataset", None, "replica"), "not ported yet"),
 ])
@@ -77,8 +87,10 @@ def _constructors():
     cfg["mapping"]["capacity"] = 256
     gs = {k: v.numpy() for k, v in vars(
         gaussians.make_state(8, device="cpu")).items()}
-    vs = {k: v.numpy() for k, v in vars(
-        depth_video.make_video_state(2, 16, 16, device="cpu")).items()}
+    # numpy has no bf16: the feature maps cross as float32
+    vs = {k: (v.float() if v.dtype == torch.bfloat16 else v).numpy()
+          for k, v in vars(
+              depth_video.make_video_state(2, 16, 16, device="cpu")).items()}
 
     class _Data:
         def get_intrinsic(self):
@@ -133,3 +145,51 @@ def test_constructor_defaults_to_the_gpu(name, monkeypatch):
           "gaussian_state_from_numpy": convert.gaussian_state_from_numpy,
           "video_state_from_numpy": convert.video_state_from_numpy}[name]
     assert inspect.signature(fn).parameters["device"].default is None
+
+
+def _tracker_constructors():
+    """name -> (callable(device), tensors(obj), function that has the
+    `device` parameter or None) for the learned tracker's constructors.
+    FactorGraph and PoseTrajectoryFiller have no device of their own: they
+    live where their video does."""
+    from splatslam_tpu_torch.config import load_config
+    from splatslam_tpu_torch.models import droid_net, weights
+    from splatslam_tpu_torch.tracking import (depth_video, factor_graph,
+                                              trajectory_filler)
+    cfg = load_config(os.path.join(REPO, "configs/Synthetic/smoke.yaml"),
+                      os.path.join(REPO, "configs/splat_slam.yaml"))
+    cfg["cam"]["H_out"], cfg["cam"]["W_out"] = 48, 64
+    cfg["tracking"]["buffer"] = 4
+    params = lambda m: list(m.parameters())
+    net = lambda: droid_net.DroidNet(device="cpu")
+    return {
+        "DroidNet": (lambda d: droid_net.DroidNet(device=d), params,
+                     droid_net.DroidNet.__init__),
+        "load_droid_params": (
+            lambda d: weights.load_droid_params(
+                "pretrained/droid_dba.msgpack", device=d), params,
+            weights.load_droid_params),
+        "FactorGraph": (
+            lambda d: factor_graph.FactorGraph(
+                depth_video.DepthVideo(cfg, device=d), net()),
+            lambda g: [g.target, g.weight, g.net, g.damping_maps], None),
+        "PoseTrajectoryFiller": (
+            lambda d: trajectory_filler.PoseTrajectoryFiller(
+                net(), depth_video.DepthVideo(cfg, device=d)),
+            lambda f: list(vars(f.video.state).values()), None),
+    }
+
+
+@pytest.mark.parametrize("name", ["DroidNet", "load_droid_params",
+                                  "FactorGraph", "PoseTrajectoryFiller"])
+def test_tracker_constructor_defaults_to_the_gpu(name, monkeypatch):
+    import inspect
+    monkeypatch.chdir(REPO)
+    make, tensors, fn = _tracker_constructors()[name]
+    held = tensors(make("cpu"))
+    assert held and all(t.device.type == "cpu" for t in held)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make(None)
+    if fn is not None:
+        assert inspect.signature(fn).parameters["device"].default is None

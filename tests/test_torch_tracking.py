@@ -17,6 +17,7 @@ from splatslam_tpu.models import init_params
 from splatslam_tpu.ops import lie as jlie
 from splatslam_tpu import tracking as jtr
 from splatslam_tpu.datasets import Synthetic as JSynthetic
+from splatslam_tpu_torch.models.droid_net import DroidNet
 from splatslam_tpu_torch.tracking.depth_video import DepthVideo
 from splatslam_tpu_torch.tracking.motion_filter import MotionFilter
 from splatslam_tpu_torch.tracking.frontend import Frontend
@@ -70,10 +71,13 @@ def _run_jax(cfg, ds, dense_ba):
 
 
 def _run_torch(cfg, ds, dense_ba):
+    # the oracle update never runs the network; admitted keyframes are
+    # still encoded, so the filter wants one (random weights will do)
+    model = DroidNet(device="cpu", generator=torch.Generator().manual_seed(0))
     video = DepthVideo(cfg, device="cpu")
     mono = lambda t, img: ds[int(t)][2] * 0.5 + 0.3
-    mf = MotionFilter(video, cfg, mono_fn=mono)
-    fe = Frontend(video, cfg)
+    mf = MotionFilter(model, video, cfg, mono_fn=mono)
+    fe = Frontend(model, video, cfg)
     intr = np.asarray(ds.get_intrinsic())
     for k in range(len(ds)):
         _, img, dep, c2w = ds[k]
@@ -82,7 +86,7 @@ def _run_torch(cfg, ds, dense_ba):
                  gt_depth=dep)
         fe()
     if dense_ba:
-        Backend(video, cfg).dense_ba(2)
+        Backend(model, video, cfg).dense_ba(2)
     n = video.counter
     s = video.state
     return n, s.poses[:n].numpy(), s.timestamp[:n].numpy(), s.disps[:n].numpy()

@@ -3,6 +3,7 @@
     python3 chip_smoke.py                  # kernels + the main path (one card)
     python3 chip_smoke.py --kernels-only   # phases 1-3 only
     python3 chip_smoke.py --learned-only   # phases 1-2 and 7-8 only
+    python3 chip_smoke.py --prior-only     # phases 1-2 and 9-12 only
     python3 chip_smoke.py --kernels-only "--time-flags= |-fmad=true"
         # also time the kernels built with other nvcc flags (here: the
         # port's own and -fmad=true) and report how far their results move
@@ -40,9 +41,38 @@ Phases, each unguarded (any failure exits non-zero):
      alt_corr chunk of it, timed with CUDA events (median of 10); the same
      update-operator call in float32 against bf16; a torch.profiler window
      over one frontend update_rounds call;
-  9. the kernels JSON line, then the device JSON line last.
+  9. prior path: configs/Synthetic/smoke.yaml with, set in memory, the
+     `dpt` mono prior (the full-width DPT-hybrid network on seeded weights,
+     no checkpoint ships) and meshing on, through the port's SLAM, uncut,
+     launch counts reset just before and read just after; gates: the run
+     ends, its results are finite, one saved depth per prior call and the
+     provider marker are on disk, mesh.ply has faces, both kernels launched.
+     No accuracy gate (a random prior with `mono_thres` off); its accuracy
+     is printed beside the learned path's. Then B1/B2 against their plain
+     versions on this run's final window;
+ 10. DPT phase: one 240x320 and one 320x640 Synthetic frame through the
+     predictor on the card against the same seeded module on the CPU in
+     float32 (network output before the clamp and final depth, tolerance
+     1e-3 of the output's maximum), then timed with CUDA events (median of
+     10) in float32 and under bf16 autocast, with the difference between
+     the two, the FLOPs PyTorch counts for one forward pass and a
+     torch.profiler window over one float32 call;
+ 11. mesh phase: the prior path's final map fused into a TSDF again: device
+     milliseconds of one `integrate`, host seconds of the extraction, grid
+     dims, voxel size, peak memory;
+ 12. recorded-sequence phase: a TUM-RGBD tree (jittered timestamps, a
+     `distortion` entry) written from the first 20 frames of the smoke
+     scene, read back by the port's TUM_RGBD reader and run through SLAM
+     with the `files` prior on the depths the prior path's provider saved;
+ 13. the kernels JSON line, then the device JSON line last.
 
-`--learned-only` skips phases 3-6 (and prints no kernels line).
+The machine this script is written for has numpy, scipy, cv2 and PIL and no
+matplotlib: every path runs with `eval_plots` off (panels and trajectory
+figures are drawn on a machine that has matplotlib, see the README), and
+phase 12 needs cv2.
+
+`--learned-only` skips phases 3-6 and 9-12, `--prior-only` phases 3-8 (both
+print no kernels line).
 
 Exits non-zero without printing a result when no CUDA device is present,
 or when the port's package is not beside this script.
@@ -375,6 +405,7 @@ def main_path(dev):
                       os.path.join(HERE, "configs/splat_slam.yaml"))
     cfg["data"]["output"] = os.path.join(HERE, "chiprun_out", "smoke_output")
     cfg["verbose"] = False
+    cfg["eval_plots"] = False
     log("main path cuts (depth only): none")
     mp, tr = cfg["mapping"], cfg["mapping"]["Training"]
     log(f"main path widths: {cfg['cam']['H_out']}x{cfg['cam']['W_out']} "
@@ -475,19 +506,9 @@ LEARNED_WEIGHTS = "pretrained/droid_dba.msgpack"
 def learned_path(dev):
     """configs/Synthetic/smoke.yaml, uncut, through the port's SLAM with the
     learned tracker in its default dtype. Returns (launch counts of every
-    kernel in that run, the SLAM object)."""
-    import torch
-    from splatslam_tpu_torch import slam as slam_mod
-    from splatslam_tpu_torch.config import load_config
+    kernel in that run, the SLAM object, its results)."""
     from splatslam_tpu_torch.models.droid_net import compute_dtype
-    from splatslam_tpu_torch.ops import raster_cuda, rasterizer as R
-
-    cfg = load_config(os.path.join(HERE, "configs/Synthetic/smoke.yaml"),
-                      os.path.join(HERE, "configs/splat_slam.yaml"))
-    cfg["data"]["output"] = os.path.join(HERE, "chiprun_out",
-                                         "smoke_output_learned")
-    cfg["verbose"] = False
-    cfg["eval_full_traj"] = True
+    cfg = smoke_cfg("smoke_output_learned")
     if cfg["tracking"].get("oracle", False):
         raise SystemExit("smoke.yaml is not a learned-tracking config")
     mp, tr, tk = cfg["mapping"], cfg["mapping"]["Training"], cfg["tracking"]
@@ -498,7 +519,32 @@ def learned_path(dev):
         f"{tr['mapping_itr_num']} init_itr_num {tr['init_itr_num']} "
         f"final_refine_iters {mp['final_refine_iters']} network dtype "
         f"{compute_dtype()}; cuts: none")
+    counts, slam, res = run_slam("learned path", cfg, dev)
+    if res["weights"] != LEARNED_WEIGHTS:
+        raise SystemExit(f"learned path ran on weights {res['weights']!r}, "
+                         f"not {LEARNED_WEIGHTS}")
+    if slam.model.dtype != compute_dtype():
+        raise SystemExit(f"network dtype {slam.model.dtype}")
+    for name in ("motion_filter", "fe.rounds", "final_ba", "full_traj_eval"):
+        if name not in res["timers"]:
+            raise SystemExit(f"learned path never ran phase {name}")
+    # the JAX suite's own absolute bound for the learned tracker
+    if res["ate_rmse"] > 0.25:
+        raise SystemExit(f"learned path kf-ATE {res['ate_rmse']} above 0.25")
+    return counts, slam, res
 
+
+FINITE = ("ate_rmse", "full_ate_rmse", "psnr", "ssim", "depth_l1",
+          "proxy_depth_l1")
+
+
+def run_slam(label, cfg, dev):
+    """One SLAM run with every launch count reset just before and read just
+    after: (launch counts, SLAM object, results). Fails on a non-finite
+    result, a kernel that never launched or a plain compositor call."""
+    import torch
+    from splatslam_tpu_torch import slam as slam_mod
+    from splatslam_tpu_torch.ops import raster_cuda, rasterizer as R
     raster_cuda.reset_launch_counts()
     for k in R.plain_calls:
         R.plain_calls[k] = 0
@@ -510,42 +556,262 @@ def learned_path(dev):
     wall = time.perf_counter() - t0
     counts = dict(raster_cuda.launches)
     plain = dict(R.plain_calls)
-    log(f"learned path: weights {res['weights']} frames {res['n_frames']} "
+    log(f"{label}: weights {res['weights']} frames {res['n_frames']} "
         f"keyframes {res['n_keyframes']} mapped "
         f"{len(slam.mapper.viewpoints)} wall {wall:.1f} s fps "
         f"{res['n_frames'] / wall:.3f}")
-    log("learned path phase timers (s): " + json.dumps(res["timers"]))
-    log(f"learned path: kf-ATE {res['ate_rmse']} full ATE "
-        f"{res['full_ate_rmse']} PSNR {res['psnr']} SSIM {res['ssim']} "
-        f"depth-L1 {res['depth_l1']} proxy depth-L1 {res['proxy_depth_l1']}")
-    log(f"launches on the learned path: {counts}; plain compositing calls "
+    log(f"{label} phase timers (s): " + json.dumps(res["timers"]))
+    log(f"{label}: kf-ATE {res['ate_rmse']} full ATE {res['full_ate_rmse']} "
+        f"PSNR {res['psnr']} SSIM {res['ssim']} depth-L1 {res['depth_l1']} "
+        f"proxy depth-L1 {res['proxy_depth_l1']} mesh {res['mesh']}")
+    log(f"launches on the {label}: {counts}; plain compositing calls "
         f"{plain}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    if res["weights"] != LEARNED_WEIGHTS:
-        raise SystemExit(f"learned path ran on weights {res['weights']!r}, "
-                         f"not {LEARNED_WEIGHTS}")
-    if slam.model.dtype != compute_dtype():
-        raise SystemExit(f"network dtype {slam.model.dtype}")
-    for name in ("ate_rmse", "full_ate_rmse", "psnr", "ssim", "depth_l1",
-                 "proxy_depth_l1"):
+    for name in FINITE:
         v = res[name]
         if v is None or not math.isfinite(v):
-            raise SystemExit(f"learned path result {name} is not finite: {v}")
-    for name in ("motion_filter", "fe.rounds", "final_ba", "full_traj_eval"):
-        if name not in res["timers"]:
-            raise SystemExit(f"learned path never ran phase {name}")
-    if res["n_keyframes"] <= tk["warmup"]:
-        raise SystemExit(f"learned path admitted {res['n_keyframes']} "
-                         f"keyframes, warmup is {tk['warmup']}")
-    # the JAX suite's own absolute bound for the learned tracker
-    if res["ate_rmse"] > 0.25:
-        raise SystemExit(f"learned path kf-ATE {res['ate_rmse']} above 0.25")
+            raise SystemExit(f"{label} result {name} is not finite: {v}")
+    if res["n_keyframes"] <= cfg["tracking"]["warmup"]:
+        raise SystemExit(f"{label} admitted {res['n_keyframes']} keyframes, "
+                         f"warmup is {cfg['tracking']['warmup']}")
     if min(counts.values()) <= 0:
-        raise SystemExit(f"a kernel never launched on the learned path: "
-                         f"{counts}")
+        raise SystemExit(f"a kernel never launched on the {label}: {counts}")
     if any(plain.values()):
-        raise SystemExit(f"the learned path ran a plain compositor: {plain}")
+        raise SystemExit(f"the {label} ran a plain compositor: {plain}")
+    return counts, slam, res
+
+
+def smoke_cfg(out_name):
+    from splatslam_tpu_torch.config import load_config
+    cfg = load_config(os.path.join(HERE, "configs/Synthetic/smoke.yaml"),
+                      os.path.join(HERE, "configs/splat_slam.yaml"))
+    cfg["data"]["output"] = os.path.join(HERE, "chiprun_out", out_name)
+    cfg["verbose"] = False
+    cfg["eval_plots"] = False
+    cfg["eval_full_traj"] = True
+    return cfg
+
+
+def depth_dir(slam):
+    return os.path.join(slam.save_dir, "mono_priors", "depths")
+
+
+def prior_path(dev, learned_res):
+    """smoke.yaml, uncut, with the `dpt` prior at full width on seeded
+    weights and meshing on. Returns (launch counts, the SLAM object)."""
+    import numpy as np
+    cfg = smoke_cfg("smoke_output_prior")
+    cfg["mono_prior"].update(provider="dpt", depth_pretrained="")
+    cfg["meshing"]["mesh"] = True
+    log("prior path: smoke.yaml with mono_prior.provider dpt, "
+        "depth_pretrained '' (seeded full-width weights), meshing.mesh "
+        "True; cuts: none")
+    counts, slam, res = run_slam("prior path", cfg, dev)
+    t = res["timers"]
+    log(f"prior path: mono {t['mono']:.3f} s over {slam.mono._dpt.calls} "
+        f"predictions, inside motion_filter {t['motion_filter']:.3f} s and "
+        f"mapping {t['mapping']:.3f} s; mesh_eval {t['mesh_eval']:.3f} s")
+    if learned_res is not None:
+        log("prior path against the learned path (oracle prior), a record "
+            "and no gate: " + ", ".join(
+                f"{k} {res[k]:.4f} vs {learned_res[k]:.4f}" for k in FINITE))
+    files = sorted(f for f in os.listdir(depth_dir(slam))
+                   if f.endswith(".npy"))
+    with open(os.path.join(depth_dir(slam), ".provider")) as f:
+        marker = f.read()
+    inside = []
+    for name in files:
+        d = np.load(os.path.join(depth_dir(slam), name))
+        if d.shape != (slam.mapper.H, slam.mapper.W) or \
+                not np.isfinite(d).all():
+            raise SystemExit(f"saved prior {name}: shape {d.shape} or a "
+                             "non-finite value")
+        inside.append(float(((d > 0) & (d < 1)).mean()))
+    log(f"prior path: {len(files)} saved depths for {slam.mono._dpt.calls} "
+        f"predictions, marker {marker!r}; share of the prior's pixels "
+        f"strictly inside (0,1): mean {np.mean(inside):.3f} min "
+        f"{min(inside):.3f} max {max(inside):.3f}")
+    if len(files) != slam.mono._dpt.calls or marker != "dpt":
+        raise SystemExit("saved depths do not match the prior calls")
+    mesh = res["mesh"]
+    if mesh is None or mesh["n_faces"] <= 0 or not os.path.exists(
+            os.path.join(slam.save_dir, "mesh.ply")):
+        raise SystemExit(f"prior path wrote no mesh: {mesh}")
     return counts, slam
+
+
+def dpt_phase(slam, dev):
+    """The predictor on the card against the same seeded module on the CPU,
+    then its times in float32 and under bf16 autocast, and a profile of one
+    float32 forward pass."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from splatslam_tpu_torch.config import load_config
+    from splatslam_tpu_torch.datasets import get_dataset
+    from splatslam_tpu_torch.models.dpt import DPTDepthPredictor
+    gpu = slam.mono._dpt
+    cpu = DPTDepthPredictor("", device="cpu")
+    n_par = sum(p.numel() for p in gpu.model.parameters())
+    x = torch.zeros(1, 3, gpu.size, gpu.size, device=dev)
+    with torch.no_grad(), FlopCounterMode(display=False) as fc:
+        gpu.model(x)
+    flops = fc.get_total_flops()
+    log(f"DPT: {n_par / 1e6:.1f} M parameters, {flops / 1e12:.3f} TFLOP per "
+        f"{gpu.size}x{gpu.size} forward pass as PyTorch counts them "
+        f"(convolutions, matmuls, attention), {flops / 67e12 * 1e3:.2f} ms at "
+        "67 TFLOP/s")
+    for name in ("smoke", "replica_scale"):
+        cfg = load_config(
+            os.path.join(HERE, f"configs/Synthetic/{name}.yaml"),
+            os.path.join(HERE, "configs/splat_slam.yaml"))
+        img = get_dataset(cfg)[0][1]
+        H, W = img.shape[:2]
+        out_g = gpu.network_output(img).cpu()
+        out_c = cpu.network_output(img)
+        d_g, d_c = gpu(img), cpu(img)
+        top = out_c.abs().max().item()
+        err_o = (out_g - out_c).abs().max().item()
+        err_d = float(abs(d_g - d_c).max())
+        log(f"DPT {H}x{W} card against CPU, float32: network output "
+            f"max|err| {err_o:.3e} at max|out| {top:.4f} (tol 1e-3 of it), "
+            f"final depth max|err| {err_d:.3e} (tol 1e-3); output > 0 on "
+            f"{(out_c > 0).float().mean().item():.3f} of the pixels, inside "
+            f"(0,1) on {((out_c > 0) & (out_c < 1)).float().mean().item():.3f}")
+        if not (top > 0 and err_o <= 1e-3 * top and err_d <= 1e-3
+                and d_g.shape == (H, W)):
+            raise SystemExit(f"DPT on the card disagrees with the CPU ({name})")
+        ms_net = cuda_ms(lambda: gpu.network_output(img))
+        ms_all = cuda_ms(lambda: gpu(img))
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            out_b = gpu.network_output(img).float().cpu()
+            ms_bf = cuda_ms(lambda: gpu.network_output(img))
+        log(f"DPT {H}x{W}: network_output {ms_net:.3f} ms float32 "
+            f"({flops / ms_net / 1e9:.1f} TFLOP/s), whole call {ms_all:.3f} "
+            f"ms; bf16 autocast {ms_bf:.3f} ms, max|diff to float32| "
+            f"{(out_b - out_g).abs().max().item():.4e} "
+            f"({(out_b - out_g).abs().max().item() / top:.4f} of max|out|), "
+            f"mean {(out_b - out_g).abs().mean().item():.4e}")
+
+    def run():
+        gpu.network_output(img)
+        torch.cuda.synchronize()
+
+    profile_run(f"one DPT network_output call, float32, {H}x{W} frame", run)
+
+
+def mesh_phase(slam, dev):
+    """The prior path's final map fused again: times of `integrate` and of
+    the host extraction, grid dims, peak memory."""
+    import numpy as np
+    import torch
+    from splatslam_tpu_torch.utils.eval_render import (fuse_keyframes,
+                                                       _render_depth)
+    from splatslam_tpu_torch.utils.mesh import clean_mesh
+    mp = slam.mapper
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    vol = fuse_keyframes(mp, slam.global_scale)
+    torch.cuda.synchronize()
+    t_fuse = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    verts, faces = vol.extract_mesh()
+    t_extract = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    verts, faces, _ = clean_mesh(verts, faces)
+    t_clean = time.perf_counter() - t0
+    cam = mp.viewpoints[mp.current_window[0]]
+    with torch.no_grad():
+        out = mp.render_batch([cam])
+        depth, color = _render_depth(out)[0], out.color[0].clamp(0, 1)
+    intr = mp.intrinsics.tolist()
+    ms = cuda_ms(lambda: vol.integrate(depth, color, np.asarray(cam.w2c),
+                                       intr))
+    n_vox = vol.tsdf.numel()
+    n_kf = sum(mp.is_kf.values())
+    log(f"mesh: grid {tuple(vol.tsdf.shape)} = {n_vox / 1e6:.2f} M voxels, "
+        f"voxel {vol.voxel:.5f} trunc {vol.trunc:.5f} (map units, "
+        f"{slam.global_scale:.4f} m each); render + integrate of {n_kf} "
+        f"keyframes {t_fuse:.3f} s; integrate {ms:.3f} ms a frame (CUDA "
+        f"events, median of 10; the grid's 5 floats read and written once "
+        f"are {n_vox * 40 / 3.35e12 * 1e3:.3f} ms at 3.35 TB/s); extraction "
+        f"on the host {t_extract:.3f} s + clean_mesh {t_clean:.3f} s; "
+        f"{len(verts)} vertices {len(faces)} faces; device memory "
+        f"{base / 2**30:.2f} GiB before, peak {peak / 2**30:.2f} GiB")
+    if len(faces) <= 0:
+        raise SystemExit("mesh phase extracted no face")
+
+
+def write_tum_tree(root, cfg, n):
+    """The first `n` frames of cfg's Synthetic scene in TUM-RGBD layout:
+    rgb.txt / depth.txt / groundtruth.txt, 5 Hz with jittered timestamps."""
+    import cv2
+    import numpy as np
+    from scipy.spatial.transform import Rotation
+    from splatslam_tpu_torch.datasets import get_dataset
+    ds = get_dataset(cfg)
+    for d in ("rgb", "depth"):
+        os.makedirs(os.path.join(root, d))
+    rng = np.random.RandomState(5)
+    rgb_l, dep_l, gt_l = [], [], []
+    for i in range(n):
+        _, color, depth, c2w = ds[i]
+        t_rgb, t_dep, t_pose = 1000.0 + 0.2 * i + rng.uniform(-0.01, 0.01, 3)
+        bgr = (np.clip(color, 0, 1) * 255).astype(np.uint8)[..., ::-1]
+        ok = cv2.imwrite(os.path.join(root, "rgb", f"{t_rgb:.6f}.jpg"), bgr,
+                         [cv2.IMWRITE_JPEG_QUALITY, 97])
+        ok &= cv2.imwrite(os.path.join(root, "depth", f"{t_dep:.6f}.png"),
+                          np.round(depth * 5000.0).astype(np.uint16))
+        if not ok:
+            raise SystemExit("cv2 could not write the TUM tree")
+        rgb_l.append(f"{t_rgb:.6f} rgb/{t_rgb:.6f}.jpg")
+        dep_l.append(f"{t_dep:.6f} depth/{t_dep:.6f}.png")
+        q = Rotation.from_matrix(c2w[:3, :3]).as_quat()
+        gt_l.append(f"{t_pose:.6f} " + " ".join(
+            f"{v:.9f}" for v in (*c2w[:3, 3], *q)))
+    for name, lines, head in (
+            ("rgb.txt", rgb_l, ""), ("depth.txt", dep_l, ""),
+            ("groundtruth.txt", gt_l, "# timestamp tx ty tz qx qy qz qw\n")):
+        with open(os.path.join(root, name), "w") as f:
+            f.write(head + "\n".join(lines) + "\n")
+
+
+def recorded_path(prior, dev, n=20):
+    """A TUM-RGBD tree of the smoke scene's first `n` frames through the
+    port's reader and SLAM with the `files` prior, on depths saved by the
+    prior path's provider. Returns the launch counts."""
+    import shutil
+    import numpy as np
+    from splatslam_tpu_torch.datasets import TUM_RGBD
+    root = os.path.join(HERE, "chiprun_out", "tum_tree")
+    shutil.rmtree(root, ignore_errors=True)
+    write_tum_tree(root, prior.cfg, n)
+    # the `files` prior needs a depth for whichever frame gets admitted
+    for i in range(n):
+        prior.mono(i)
+    cfg = smoke_cfg("smoke_output_recorded")
+    cfg.update(dataset="tumrgbd", scene="tum_tree", max_frames=n)
+    cfg["cam"].update(png_depth_scale=5000.0,
+                      distortion=[-0.005, 0.0, 0.0, 0.0, 0.0])
+    cfg["data"].update(dataset_root=root, input_folder="")
+    cfg["mono_prior"]["provider"] = "files"
+    out = os.path.join(cfg["data"]["output"], "tum_tree", "mono_priors")
+    shutil.rmtree(out, ignore_errors=True)
+    shutil.copytree(os.path.dirname(depth_dir(prior)), out)
+    log(f"recorded path: {n} frames of the smoke scene as a TUM-RGBD tree "
+        f"(jpg quality 97, 16-bit depth at 5000/m, jittered timestamps, "
+        f"distortion {cfg['cam']['distortion']}), provider files on the "
+        "prior path's saved depths")
+    counts, slam, _ = run_slam("recorded path", cfg, dev)
+    if not isinstance(slam.stream, TUM_RGBD) or len(slam.stream) != n:
+        raise SystemExit(f"recorded path read {len(slam.stream)} frames "
+                         f"through {type(slam.stream).__name__}")
+    gt0 = slam.stream.get_gt_pose(0)
+    if not np.array_equal(gt0, np.eye(4, dtype=np.float32)):
+        raise SystemExit("the TUM reader did not normalise the first pose")
+    return counts
 
 
 def network_phase(slam, dev):
@@ -633,6 +899,9 @@ def main(argv=None):
     ap.add_argument("--learned-only", action="store_true",
                     help="only the build, the learned path and the network "
                     "phase")
+    ap.add_argument("--prior-only", action="store_true",
+                    help="only the build, the prior path, the DPT and mesh "
+                    "phases and the recorded-sequence path")
     ap.add_argument("--time-flags", default=None,
                     help="extra nvcc flags (space-separated; several sets "
                     "separated by '|', an empty set is the port's own "
@@ -666,9 +935,17 @@ def main(argv=None):
         time_flags.append([f for f in raster_cuda.NVCC_FLAGS if f not in drop]
                           + extra)
     if args.learned_only:
-        _, learned = learned_path(dev)
+        _, learned, _ = learned_path(dev)
         kernel_phase("learned final window", *window_input(learned))
         network_phase(learned, dev)
+        refuse_jax()
+        return 0
+    if args.prior_only:
+        _, prior = prior_path(dev, None)
+        kernel_phase("prior final window", *window_input(prior))
+        dpt_phase(prior, dev)
+        mesh_phase(prior, dev)
+        recorded_path(prior, dev)
         refuse_jax()
         return 0
     inputs = kernel_input(dev)
@@ -687,10 +964,17 @@ def main(argv=None):
     profile_phase(slam)
     del slam
     torch.cuda.empty_cache()
-    counts_learned, learned = learned_path(dev)
+    counts_learned, learned, learned_res = learned_path(dev)
     window_learned = kernel_phase("learned final window",
                                   *window_input(learned))
     network_phase(learned, dev)
+    del learned
+    torch.cuda.empty_cache()
+    counts_prior, prior = prior_path(dev, learned_res)
+    window_prior = kernel_phase("prior final window", *window_input(prior))
+    dpt_phase(prior, dev)
+    mesh_phase(prior, dev)
+    counts_recorded = recorded_path(prior, dev)
     src = "splatslam_tpu_torch/csrc/composite.cu"
     replaces = {"composite_fwd": "splatslam_tpu/ops/raster_pallas.py:333",
                 "composite_bwd": "splatslam_tpu/ops/raster_pallas.py:387"}
@@ -700,12 +984,15 @@ def main(argv=None):
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces[name],
             launches=counts[name], launches_learned=counts_learned[name],
-            **m,
+            launches_prior=counts_prior[name],
+            launches_recorded=counts_recorded[name], **m,
             one_camera={k: v for k, v in single[name].items()
                         if k != "library_ms"},
             window={k: v for k, v in w.items() if k != "library_ms"},
             learned_window={k: v for k, v in window_learned[name].items()
-                            if k != "library_ms"}))
+                            if k != "library_ms"},
+            prior_window={k: v for k, v in window_prior[name].items()
+                          if k != "library_ms"}))
     refuse_jax()
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -406,3 +406,41 @@ def save_ply(st: GaussianState, path: str):
     with open(path, "wb") as f:
         f.write(("\n".join(header) + "\n").encode())
         f.write(data.tobytes())
+
+
+def load_ply(path: str, capacity: int | None = None,
+             device=None) -> GaussianState:
+    """Load a (reference-format) Gaussian PLY into a padded state on
+    `device` (None is the GPU): the inverse of save_ply."""
+    with open(path, "rb") as f:
+        header = []
+        while True:
+            line = f.readline().decode().strip()
+            header.append(line)
+            if line == "end_header":
+                break
+        n = next(int(l.split()[-1]) for l in header
+                 if l.startswith("element vertex"))
+        props = [l.split()[-1] for l in header if l.startswith("property")]
+        data = np.frombuffer(f.read(), dtype="<f4").reshape(n, len(props))
+    col = {p: data[:, i] for i, p in enumerate(props)}
+    n_rest = sum(1 for p in props if p.startswith("f_rest_"))
+    R = n_rest // 3
+    if capacity is None:
+        capacity = max(2 * n, 1024)
+    st = make_state(capacity, sh_degree=int(np.sqrt(R + 1)) - 1 if R else 0,
+                    device=device)
+    cols = lambda names: torch.as_tensor(
+        np.stack([col[k] for k in names], -1), device=st.device)
+    st.xyz[:n] = cols(["x", "y", "z"])
+    st.f_dc[:n] = cols([f"f_dc_{i}" for i in range(3)])
+    if n_rest:
+        # channel-major on disk (k = c*R + r), (n, R, 3) in the state
+        st.f_rest[:n] = cols([f"f_rest_{i}" for i in range(n_rest)]).reshape(
+            n, 3, R).transpose(1, 2)
+    st.opacity[:n] = cols(["opacity"])
+    st.scaling[:n] = cols([f"scale_{i}" for i in range(3)])
+    st.rotation[:n] = cols([f"rot_{i}" for i in range(4)])
+    st.alive[:n] = True
+    st.kf_id[:n] = 0
+    return st

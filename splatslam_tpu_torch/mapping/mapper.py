@@ -14,6 +14,8 @@ map_step_n.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -281,6 +283,7 @@ class Mapper:
         self.K = m.get("raster_K", 256)
         self.rebin_every = m.get("rebin_every", 8)
         self.health_every = m.get("health_every", 10)
+        self.online_plotting = m.get("online_plotting", False)
         self._mapped_count = 0
         self.max_span = m.get("raster_max_span", 4)
         self.eval_max_span = m.get("eval_max_span", 8)
@@ -789,6 +792,8 @@ class Mapper:
         self._mapped_count += 1
         if self.health_every and self._mapped_count % self.health_every == 0:
             self.log_raster_health()
+        if self.online_plotting:
+            self.plot_online(video_idx)
         return True
 
     @torch.no_grad()
@@ -817,3 +822,32 @@ class Mapper:
         else:
             emit(msg)
         return overflow, crop, max_count
+
+    @torch.no_grad()
+    def plot_online(self, video_idx):
+        """Per-keyframe RGB/depth/diff panel under `online_plots/`
+        (mapper.py:358-396,570-612); needs matplotlib."""
+        import matplotlib
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+        cam = self.viewpoints.get(video_idx)
+        if cam is None:
+            return
+        out = self.render_batch([cam])
+        img = torch.clamp(out.color[0], 0, 1).cpu().numpy()
+        gt = cam.image.cpu().numpy()
+        dep = out.depth[0].cpu().numpy()
+        gtd = cam.depth.cpu().numpy() if cam.depth is not None else dep * 0
+        fig, ax = plt.subplots(2, 3, figsize=(12, 6))
+        for a, (im, title) in zip(ax.flat, [
+                (gt, "gt rgb"), (img, "render"),
+                (np.abs(gt - img).mean(-1), "|diff|"),
+                (gtd, "proxy depth"), (dep, "render depth"),
+                (np.abs(gtd - dep), "|depth diff|")]):
+            a.imshow(im)
+            a.set_title(title)
+            a.axis("off")
+        plot_dir = os.path.join(self.save_dir or ".", "online_plots")
+        os.makedirs(plot_dir, exist_ok=True)
+        fig.savefig(os.path.join(plot_dir, f"{video_idx:05d}.png"), dpi=80)
+        plt.close(fig)

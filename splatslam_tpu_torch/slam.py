@@ -7,9 +7,10 @@ Runs the learned tracker (DroidNet admission and update rounds) or, with
 `tracking.oracle`, GT-flow targets, end to end: keyframe admission,
 DBA/DSPO bundle adjustment, loop closure, proxy-depth fusion and map
 deformation, the windowed 3DGS optimisation, the final BA and refine, and
-the kf-ATE, PSNR/SSIM, depth-L1 and full-trajectory evaluations. A
-configuration the port cannot run yet (a dataset on disk, a `files` or
-`dpt` mono prior) raises NotImplementedError.
+the kf-ATE, PSNR/SSIM, depth-L1, mesh and full-trajectory evaluations, on
+the procedural Synthetic scene or a Replica / ScanNet / TUM-RGBD tree, with
+any mono prior provider. The one configuration the port cannot run yet,
+mapping over several devices, raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import torch
 from . import resolve_device
 from .datasets import get_dataset
 from .models.weights import load_droid_params
-from .mono_prior import MonoDepthProvider, PROVIDERS
+from .mono_prior import MonoDepthProvider
 from .ops import lie
 from .tracking.depth_video import DepthVideo
 from .tracking.motion_filter import MotionFilter
@@ -35,21 +36,17 @@ from .mapping.mapper import Mapper
 from .mapping.gaussians import save_ply
 from .utils.printer import Printer, FontColor
 from .utils.eval_traj import kf_traj_eval, full_traj_eval
-from .utils.eval_render import eval_rendering
+from .utils.eval_render import eval_rendering, eval_mesh
 from .utils.profiling import PhaseTimers
 
 
 def check_slice(cfg):
-    """Fail loudly on a configuration the port cannot run yet."""
-    provider = cfg.get("mono_prior", {}).get(
-        "provider", "oracle" if cfg.get("dataset") == "synthetic"
-        else "files")
-    if provider not in PROVIDERS:
-        raise NotImplementedError(
-            f"mono_prior.provider {provider!r}: not ported yet")
-    if cfg.get("dataset") != "synthetic":
-        raise NotImplementedError(
-            f"dataset {cfg.get('dataset')!r}: not ported yet")
+    """Fail loudly on a configuration the port cannot run yet: camera
+    batches sharded over several devices (`mapping.mesh_devices` > 1)."""
+    n_mesh = int(cfg.get("mapping", {}).get("mesh_devices", 0) or 0)
+    if n_mesh > 1:
+        raise NotImplementedError(f"mapping.mesh_devices {n_mesh}: "
+                                  "multi-GPU mapping is not ported yet")
 
 
 class SLAM:
@@ -69,20 +66,21 @@ class SLAM:
         self.stream = stream if stream is not None else get_dataset(cfg)
         self.printer = Printer(len(self.stream), self.verbose)
         self.video = DepthVideo(cfg, device=self.device)
-        self.mono = MonoDepthProvider(cfg, self.stream, self.save_dir)
+        self.mono = MonoDepthProvider(cfg, self.stream, self.save_dir,
+                                      device=self.device)
         # the tracker network, loaded once and shared by its four consumers
         self.model = load_droid_params(
             cfg["tracking"].get("pretrained", ""), device=self.device)
         self.motion_filter = MotionFilter(
             self.model, self.video, cfg,
-            mono_fn=lambda t, img: self.mono(int(t)))
+            mono_fn=lambda t, img: self._prior(t))
         self.frontend = Frontend(self.model, self.video, cfg)
         self.online_ba = Backend(self.model, self.video, cfg)
         self.traj_filler = PoseTrajectoryFiller(self.model, self.video)
         self.mapper = None
         if not self.only_tracking:
             self.mapper = Mapper(cfg, self.video, self.stream,
-                                 mono_loader=self.mono, printer=self.printer,
+                                 mono_loader=self._prior, printer=self.printer,
                                  device=self.device)
             self.mapper.save_dir = self.save_dir
         self.ba_freq = cfg["tracking"]["backend"]["ba_freq"]
@@ -95,6 +93,12 @@ class SLAM:
             self.mapper.timers = self.timers
         self.frontend.timers = self.timers
         self.motion_filter.timers = self.timers
+
+    def _prior(self, idx):
+        """The mono prior of frame `idx`, timed as phase "mono" (it runs
+        inside the "motion_filter" and "mapping" phases)."""
+        with self.timers("mono"):
+            return self.mono(int(idx))
 
     def run(self):
         """Main loop (tracker.py:47-92 + the mapper handshake). Returns the
@@ -231,8 +235,27 @@ class SLAM:
         T = self.timers
         res = dict(n_frames=len(self.stream), n_keyframes=self.video.counter,
                    ate_rmse=None, full_ate_rmse=None, psnr=None, ssim=None,
-                   depth_l1=None, proxy_depth_l1=None,
+                   depth_l1=None, proxy_depth_l1=None, mesh=None,
                    weights=self.model.weights_source)
+        plots = cfg.get("eval_plots", True)
+        traj_dir = os.path.join(self.save_dir, "traj")
+        # optional evaluation before the final BA (slam.py:133-164)
+        if (cfg["tracking"]["backend"]["final_ba"]
+                and cfg["mapping"].get("eval_before_final_ba", False)
+                and self.mapper is not None):
+            npz0 = os.path.join(self.save_dir, "video_before_ba.npz")
+            self.video.save_video(npz0)
+            try:
+                _, scale0, _, _ = kf_traj_eval(
+                    npz0, traj_dir, "kf_traj_before_ba", self.stream,
+                    self.printer, plot=plots)
+                eval_rendering(self.mapper, self.save_dir, self.stream,
+                               global_scale=scale0,
+                               iteration="before_refine",
+                               printer=self.printer, save_panels=plots)
+            except Exception as e:
+                self.printer.print(str(e), FontColor.ERROR)
+
         if cfg["tracking"]["backend"]["final_ba"]:
             with T("final_ba"):
                 self.backend()
@@ -244,8 +267,8 @@ class SLAM:
         try:
             with T("kf_traj_eval"):
                 ate_stats, self.global_scale, _, _ = kf_traj_eval(
-                    npz, os.path.join(self.save_dir, "traj"), "kf_traj",
-                    self.stream, self.printer)
+                    npz, traj_dir, "kf_traj", self.stream, self.printer,
+                    plot=plots)
             res["ate_rmse"] = ate_stats["rmse"]
         except Exception as e:  # graceful like slam.py:175-176
             self.printer.print(str(e), FontColor.ERROR)
@@ -259,12 +282,21 @@ class SLAM:
                 r = eval_rendering(self.mapper, self.save_dir, self.stream,
                                    global_scale=self.global_scale,
                                    iteration="after_refine",
-                                   printer=self.printer)
+                                   printer=self.printer, save_panels=plots)
             res.update(psnr=r["mean_psnr"], ssim=r["mean_ssim"],
                        depth_l1=r["mean_depth_l1"])
             if cfg.get("meshing", {}).get("mesh", False):
-                self.printer.print("mesh eval: not ported yet, skipped",
-                                   FontColor.EVAL)
+                try:
+                    with T("mesh_eval"):
+                        res["mesh"] = eval_mesh(
+                            self.mapper, self.save_dir,
+                            global_scale=self.global_scale,
+                            gt_mesh_path=cfg["meshing"].get(
+                                "gt_mesh_path", ""),
+                            printer=self.printer)
+                except Exception as e:
+                    self.printer.print(f"mesh eval failed: {e}",
+                                       FontColor.ERROR)
             save_ply(self.mapper.st,
                      os.path.join(self.save_dir, "gaussians.ply"))
 
@@ -289,8 +321,8 @@ class SLAM:
             try:
                 with T("full_traj_eval"):
                     _, full_stats = full_traj_eval(
-                        self.traj_filler, os.path.join(self.save_dir, "traj"),
-                        "full_traj", self.stream, self.printer)
+                        self.traj_filler, traj_dir, "full_traj", self.stream,
+                        self.printer, plot=plots)
                 res["full_ate_rmse"] = full_stats["rmse"]
             except Exception as e:
                 self.printer.print(f"full traj eval failed: {e}",

@@ -1,9 +1,7 @@
 """Trajectory evaluation: Sim(3) Umeyama alignment + APE statistics
 (counterpart of splatslam_tpu/utils/eval_traj.py; replaces the reference's
-`evo` dependency, src/utils/eval_traj.py:20-175). Host numpy.
-
-The trajectory figures of the JAX package are not produced here (panels are
-not ported yet); the metrics files and the aligned trajectory are.
+`evo` dependency, src/utils/eval_traj.py:20-175). Host numpy; the
+trajectory figure needs matplotlib and is drawn only when `plot` is set.
 """
 
 from __future__ import annotations
@@ -50,6 +48,34 @@ def ape_stats(est_xyz: np.ndarray, gt_xyz: np.ndarray, correct_scale=True):
     return stats, (r, t, s)
 
 
+def plot_trajectory(aligned_xyz, gt_xyz, path, title=""):
+    """Aligned-vs-GT trajectory figure (reference eval_traj.py:119-140
+    writes one per eval via evo's plot module; same content here with
+    matplotlib directly: top-down xy track + per-axis error shading)."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    err = np.linalg.norm(aligned_xyz - gt_xyz, axis=1)
+    fig, (ax0, ax1) = plt.subplots(
+        1, 2, figsize=(11, 5), gridspec_kw={"width_ratios": [3, 2]})
+    ax0.plot(gt_xyz[:, 0], gt_xyz[:, 1], "k--", lw=1.2, label="ground truth")
+    sc = ax0.scatter(aligned_xyz[:, 0], aligned_xyz[:, 1], c=err, s=8,
+                     cmap="plasma", label="estimate (Sim3-aligned)")
+    fig.colorbar(sc, ax=ax0, label="APE [m]")
+    ax0.set_xlabel("x [m]")
+    ax0.set_ylabel("y [m]")
+    ax0.set_aspect("equal", adjustable="datalim")
+    ax0.legend(loc="best", fontsize=8)
+    ax0.set_title(title or "trajectory (top-down)")
+    ax1.plot(err, lw=1.0)
+    ax1.set_xlabel("keyframe")
+    ax1.set_ylabel("APE [m]")
+    ax1.set_title(f"rmse {np.sqrt((err ** 2).mean()):.4f} m")
+    fig.tight_layout()
+    fig.savefig(path, dpi=90)
+    plt.close(fig)
+
+
 def _gt_c2w_list(stream, timestamps):
     poses, keep = [], []
     get = getattr(stream, "get_gt_pose", None)
@@ -62,9 +88,9 @@ def _gt_c2w_list(stream, timestamps):
     return poses, keep
 
 
-def kf_traj_eval(npz_path, traj_dir, name, stream, printer=None):
-    """Keyframe ATE from a saved video.npz (eval_traj.py:113-140).
-    Returns (stats, global_scale, r_a, t_a)."""
+def kf_traj_eval(npz_path, traj_dir, name, stream, printer=None, plot=True):
+    """Keyframe ATE from a saved video.npz (eval_traj.py:113-140); `plot`
+    also draws `<name>.png`. Returns (stats, global_scale, r_a, t_a)."""
     data = np.load(npz_path)
     c2w = data["poses"]
     gt, keep = _gt_c2w_list(stream, data["timestamps"])
@@ -76,23 +102,32 @@ def kf_traj_eval(npz_path, traj_dir, name, stream, printer=None):
         f.write(json.dumps(stats, indent=2))
     aligned = (s * (r @ est_xyz.T) + t[:, None]).T
     np.save(os.path.join(traj_dir, f"{name}_aligned.npy"), aligned)
+    if plot:
+        plot_trajectory(aligned, gt_xyz,
+                        os.path.join(traj_dir, f"{name}.png"), title=name)
     if printer:
         printer.print(f"kf ate rmse: {stats['rmse']:.4f} (scale {s:.4f})")
     return stats, s, r, t
 
 
-def full_traj_eval(traj_filler, traj_dir, name, stream, printer=None):
+def full_traj_eval(traj_filler, traj_dir, name, stream, printer=None,
+                   plot=True):
     """Fill the non-keyframe poses, then evaluate every frame
-    (eval_traj.py:143-175). Returns (c2w (n,4,4), stats)."""
+    (eval_traj.py:143-175); `plot` also draws `<name>.png`. Returns
+    (c2w (n,4,4), stats)."""
     from ..ops import lie
     c2w = lie.inv_matrix_np(np.asarray(traj_filler(stream)))
     gt, keep = _gt_c2w_list(stream, np.arange(len(stream)))
     est_xyz = c2w[keep][:, :3, 3]
     gt_xyz = np.stack([g[:3, 3] for g in gt])
-    stats, _ = ape_stats(est_xyz, gt_xyz, correct_scale=True)
+    stats, (r, t, s) = ape_stats(est_xyz, gt_xyz, correct_scale=True)
     os.makedirs(traj_dir, exist_ok=True)
     with open(os.path.join(traj_dir, f"metrics_{name}.txt"), "w") as f:
         f.write(json.dumps(stats, indent=2))
+    if plot:
+        aligned = (s * (r @ est_xyz.T) + t[:, None]).T
+        plot_trajectory(aligned, gt_xyz,
+                        os.path.join(traj_dir, f"{name}.png"), title=name)
     if printer:
         printer.print(f"full ate rmse: {stats['rmse']:.4f}")
     return c2w, stats

@@ -15,6 +15,7 @@ import torch
 
 from splatslam_tpu.ops import ba as jba, lie as jlie, projective as jpops
 from splatslam_tpu_torch.ops import ba as tba, lie as tlie
+from test_torch_threads import few_torch_threads  # noqa: F401
 
 
 def _scene(seed=0, P=5, H=8, W=12):

@@ -34,6 +34,7 @@ import torch
 from splatslam_tpu.ops import rasterizer as jrz, raster_pallas as jrp
 from splatslam_tpu_torch.ops import rasterizer as trz, raster_cuda
 from composite_cases import CASES, make_case
+from test_torch_threads import few_torch_threads  # noqa: F401
 
 T = torch.as_tensor
 

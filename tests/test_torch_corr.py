@@ -14,6 +14,7 @@ import torch
 
 from splatslam_tpu.ops import corr as jcorr
 from splatslam_tpu_torch.ops import corr as tcorr
+from test_torch_threads import few_torch_threads  # noqa: F401
 
 LOOSE = dict(atol=2e-4, rtol=1e-3)
 TIGHT = dict(rtol=1e-4, atol=1e-5)

@@ -24,6 +24,7 @@ from splatslam_tpu.models import weights as jweights
 from splatslam_tpu_torch import convert
 from splatslam_tpu_torch.models import droid_net as tnet
 from splatslam_tpu_torch.models import weights as tweights
+from test_torch_threads import few_torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = dict(atol=2e-4, rtol=1e-3)

@@ -10,6 +10,8 @@ import sys
 import pytest
 import torch
 
+from test_torch_threads import few_torch_threads  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PROBE = r"""
@@ -53,8 +55,8 @@ def test_learned_smoke_config_is_inside_the_slice(monkeypatch):
 
 
 @pytest.mark.parametrize("edit,match", [
-    (("mono_prior", "provider", "dpt"), "not ported yet"),
-    (("dataset", None, "replica"), "not ported yet"),
+    (("mapping", "mesh_devices", 2), "multi-GPU mapping is not ported yet"),
+    (("mapping", "mesh_devices", 4), "multi-GPU mapping is not ported yet"),
 ])
 def test_configs_outside_the_slice_fail_loudly(edit, match, monkeypatch):
     monkeypatch.chdir(REPO)
@@ -71,14 +73,54 @@ def test_configs_outside_the_slice_fail_loudly(edit, match, monkeypatch):
         check_slice(cfg)
 
 
+@pytest.mark.parametrize("edit", [
+    ("mono_prior", "provider", "dpt"), ("mono_prior", "provider", "files"),
+    ("dataset", None, "replica"), ("dataset", None, "scannet"),
+    ("dataset", None, "tumrgbd"), ("mapping", "mesh_devices", 1),
+    ("meshing", "mesh", True)])
+def test_recorded_sequence_configs_are_inside_the_slice(edit, monkeypatch):
+    monkeypatch.chdir(REPO)
+    from splatslam_tpu_torch.config import load_config
+    from splatslam_tpu_torch.slam import check_slice
+    cfg = load_config(os.path.join(REPO, "configs/Synthetic/smoke_oracle.yaml"),
+                      os.path.join(REPO, "configs/splat_slam.yaml"))
+    sec, key, val = edit
+    if key is None:
+        cfg[sec] = val
+    else:
+        cfg[sec][key] = val
+    check_slice(cfg)
+
+
+def test_every_config_in_the_repository_is_inside_the_slice(monkeypatch):
+    import glob
+    monkeypatch.chdir(REPO)
+    from splatslam_tpu_torch.config import load_config
+    from splatslam_tpu_torch.datasets import dataset_dict
+    from splatslam_tpu_torch.mono_prior import PROVIDERS
+    from splatslam_tpu_torch.slam import check_slice
+    paths = [p for p in glob.glob(os.path.join(REPO, "configs/*/*.yaml"))]
+    assert len(paths) >= 10
+    for p in paths:
+        cfg = load_config(p, os.path.join(REPO, "configs/splat_slam.yaml"))
+        if "dataset" not in cfg:      # a dataset's shared base file
+            continue
+        check_slice(cfg)
+        assert cfg["dataset"] in dataset_dict, p
+        assert cfg["mono_prior"]["provider"] in PROVIDERS, p
+
+
 def _constructors():
     """name -> callable(device) for every public constructor of the port
     that places tensors."""
     import numpy as np
     from splatslam_tpu_torch import convert
     from splatslam_tpu_torch.config import load_config
+    from splatslam_tpu_torch import mono_prior
     from splatslam_tpu_torch.mapping import camera, gaussians, mapper
+    from splatslam_tpu_torch.models import dpt
     from splatslam_tpu_torch.tracking import depth_video
+    from splatslam_tpu_torch.utils import mesh
 
     cfg = load_config(os.path.join(REPO, "configs/Synthetic/smoke_oracle.yaml"),
                       os.path.join(REPO, "configs/splat_slam.yaml"))
@@ -113,12 +155,32 @@ def _constructors():
             convert.gaussian_state_from_numpy(gs, device=d),
         "video_state_from_numpy": lambda d:
             convert.video_state_from_numpy(vs, device=d),
+        "load_ply": lambda d: gaussians.load_ply(_saved_ply(), device=d),
+        "TSDFVolume": lambda d: mesh.TSDFVolume(
+            [0, 0, 0], [1, 1, 1], voxel=0.25, device=d),
+        "DPTDepthPredictor": lambda d: dpt.DPTDepthPredictor(
+            "", size=32, device=d).model,
+        "MonoDepthProvider_dpt": lambda d: mono_prior.MonoDepthProvider(
+            {"mono_prior": {"provider": "dpt", "depth_pretrained": "",
+                            "save_depths": False}}, None, "unused",
+            device=d)._dpt.model,
     }
+
+
+def _saved_ply():
+    import tempfile
+    from splatslam_tpu_torch.mapping import gaussians
+    st = gaussians.make_state(8, device="cpu")
+    st.alive[:3] = True
+    path = os.path.join(tempfile.mkdtemp(), "g.ply")
+    gaussians.save_ply(st, path)
+    return path
 
 
 @pytest.mark.parametrize("name", [
     "DepthVideo", "make_video_state", "Mapper", "make_state", "make_camera",
-    "gaussian_state_from_numpy", "video_state_from_numpy"])
+    "gaussian_state_from_numpy", "video_state_from_numpy", "load_ply",
+    "TSDFVolume", "DPTDepthPredictor", "MonoDepthProvider_dpt"])
 def test_constructor_defaults_to_the_gpu(name, monkeypatch):
     """device=None resolves through resolve_device: without a GPU it raises
     the CLI's error instead of building on the CPU; "cpu" is still taken."""
@@ -126,18 +188,25 @@ def test_constructor_defaults_to_the_gpu(name, monkeypatch):
     monkeypatch.chdir(REPO)
     make = _constructors()[name]
     obj = make("cpu")
-    tensors = [v for v in vars(obj).values() if torch.is_tensor(v)] or [
-        v for v in vars(getattr(obj, "st", getattr(obj, "state", obj))
-                        ).values() if torch.is_tensor(v)]
+    tensors = list(obj.parameters()) if isinstance(obj, torch.nn.Module) \
+        else [v for v in vars(obj).values() if torch.is_tensor(v)] or [
+            v for v in vars(getattr(obj, "st", getattr(obj, "state", obj))
+                            ).values() if torch.is_tensor(v)]
     assert tensors and all(t.device.type == "cpu" for t in tensors)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make(None)
     # and the default really is None
-    from splatslam_tpu_torch import convert
+    from splatslam_tpu_torch import convert, mono_prior
     from splatslam_tpu_torch.mapping import camera, gaussians, mapper
+    from splatslam_tpu_torch.models import dpt
     from splatslam_tpu_torch.tracking import depth_video
-    fn = {"DepthVideo": depth_video.DepthVideo.__init__,
+    from splatslam_tpu_torch.utils import mesh
+    fn = {"load_ply": gaussians.load_ply,
+          "TSDFVolume": mesh.TSDFVolume.__init__,
+          "DPTDepthPredictor": dpt.DPTDepthPredictor.__init__,
+          "MonoDepthProvider_dpt": mono_prior.MonoDepthProvider.__init__,
+          "DepthVideo": depth_video.DepthVideo.__init__,
           "make_video_state": depth_video.make_video_state,
           "Mapper": mapper.Mapper.__init__,
           "make_state": gaussians.make_state,

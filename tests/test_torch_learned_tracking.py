@@ -31,6 +31,8 @@ from splatslam_tpu_torch.tracking import factor_graph as tfg
 from splatslam_tpu_torch.tracking import motion_filter as tmf
 
 import os
+from test_torch_threads import few_torch_threads  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CKPT = os.path.join(REPO, "pretrained/droid_dba.msgpack")
 H, W, BUF = 64, 104, 24

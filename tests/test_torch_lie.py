@@ -9,6 +9,7 @@ import torch
 
 from splatslam_tpu.ops import lie as jl
 from splatslam_tpu_torch.ops import lie as tl
+from test_torch_threads import few_torch_threads  # noqa: F401
 
 ATOL = 1e-5
 

@@ -19,6 +19,7 @@ from splatslam_tpu.mapping import mapper as jM
 from splatslam_tpu_torch.mapping import gaussians as tG, losses as tL
 from splatslam_tpu_torch.mapping import mapper as tM
 from splatslam_tpu_torch.convert import gaussian_state_from_numpy
+from test_torch_threads import few_torch_threads  # noqa: F401
 
 T = lambda x: torch.as_tensor(np.array(x))
 H, W, K = 32, 48, 32

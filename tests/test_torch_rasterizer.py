@@ -22,6 +22,7 @@ import torch
 
 from splatslam_tpu.ops import rasterizer as jrz, raster_pallas as jrp
 from splatslam_tpu_torch.ops import rasterizer as trz, raster_cuda
+from test_torch_threads import few_torch_threads  # noqa: F401
 
 T = lambda x: torch.as_tensor(np.array(x))
 

@@ -18,6 +18,7 @@ import os
 
 import numpy as np
 import pytest
+from test_torch_threads import few_torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

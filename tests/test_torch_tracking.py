@@ -23,6 +23,7 @@ from splatslam_tpu_torch.tracking.motion_filter import MotionFilter
 from splatslam_tpu_torch.tracking.frontend import Frontend
 from splatslam_tpu_torch.tracking.backend import Backend
 from splatslam_tpu_torch.ops import lie as tlie
+from test_torch_threads import few_torch_threads  # noqa: F401
 
 
 def _cfg(n_frames=10):

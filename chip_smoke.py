@@ -4,6 +4,7 @@
     python3 chip_smoke.py --kernels-only   # phases 1-3 only
     python3 chip_smoke.py --learned-only   # phases 1-2 and 7-8 only
     python3 chip_smoke.py --prior-only     # phases 1-2 and 9-12 only
+    python3 chip_smoke.py --train-only     # phases 1-2 and 13 only
     python3 chip_smoke.py --kernels-only "--time-flags= |-fmad=true"
         # also time the kernels built with other nvcc flags (here: the
         # port's own and -fmad=true) and report how far their results move
@@ -64,15 +65,47 @@ Phases, each unguarded (any failure exits non-zero):
      `distortion` entry) written from the first 20 frames of the smoke
      scene, read back by the port's TUM_RGBD reader and run through SLAM
      with the `files` prior on the depths the prior path's provider saved;
- 13. the kernels JSON line, then the device JSON line last.
+ 13. trainer phase (the tracker's self-trainer, plain PyTorch under
+     autograd in float32, no kernel of its own):
+     (a) one flow step (96x128, batch 2, 8 iterations) and one DBA step
+         (96x128, N=7, 4 rounds, one scene) from the same seeded
+         parameters and batch on the card and on the CPU: loss, EPE/ATE
+         and pre-clip gradient norm within 1e-5 relative (flow), 1e-3
+         (DBA loss and ATE) and 5e-3 (DBA gradient norm); every gradient
+         tensor within 2e-3 of its max |g| (flow), 2e-2 (DBA, update
+         operator) or 2e-1 (DBA, encoders), or three times what a 1e-6
+         perturbation of the parameters moves it on the CPU (printed
+         beside: float32 does not reproduce the DBA step's gradients
+         better); the biases ahead of an
+         InstanceNorm, zero analytically, below 1e-6 of the largest
+         gradient;
+     (b) descent: train(steps=8, batch=2, 64x96, lr 4e-4, pool=1), the
+         last EPE below the first;
+     (c) the flow stage at train_droid.py's defaults (batch 4, both
+         FLOW_BUCKETS, 8 iterations, lr 2e-4), 12 steps on a pool of 2
+         batches per bucket: ms per step per bucket (CUDA-synchronised,
+         median after each bucket's first two steps), the pool's host
+         render time, peak memory, the loss/EPE history;
+     (d) the DBA stage at its defaults (batch 2, N=7, 8 rounds, lr 5e-5,
+         both buckets, pool 2 per bucket), 8 steps from (c)'s checkpoint:
+         ms per step per bucket, ATE history; gates: gnorm > 0, the weight
+         and eta heads moved;
+     (e) (d)'s .msgpack read back by load_droid_params in float32,
+         bit-identical to the trained net, and in bf16 one update_step;
+     (f) torch.profiler over one flow step and one DBA step at 240x320
+         (device busy share, launches, top kernels) and their FLOPs by
+         FlopCounterMode;
+     every file under pretrained/ hashes the same before and after the
+     script;
+ 14. the kernels JSON line, then the device JSON line last.
 
 The machine this script is written for has numpy, scipy, cv2 and PIL and no
 matplotlib: every path runs with `eval_plots` off (panels and trajectory
 figures are drawn on a machine that has matplotlib, see the README), and
 phase 12 needs cv2.
 
-`--learned-only` skips phases 3-6 and 9-12, `--prior-only` phases 3-8 (both
-print no kernels line).
+`--learned-only` skips phases 3-6 and 9-13, `--prior-only` phases 3-8 and 13,
+`--train-only` phases 3-12 (none of them prints the kernels line).
 
 Exits non-zero without printing a result when no CUDA device is present,
 or when the port's package is not beside this script.
@@ -450,12 +483,14 @@ def main_path(dev):
     return counts, slam
 
 
-def profile_run(label, run):
-    """torch.profiler over one call of `run` (after one warm-up call):
-    device kernel time by name and the device's busy share."""
+def profile_run(label, run, warmup=True):
+    """torch.profiler over one call of `run` (after one warm-up call unless
+    the caller has just made one): device kernel time by name and the
+    device's busy share."""
     from torch.profiler import profile, ProfilerActivity
     from torch.autograd import DeviceType
-    run()
+    if warmup:
+        run()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -467,11 +502,14 @@ def profile_run(label, run):
                    if getattr(e, "device_type", None) == DeviceType.CUDA
                    and e.self_device_time_total > 0), reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
+    launches = sum(r[2] for r in rows)
     log(f"profile: {label}: wall {wall * 1e3:.1f}"
         f" ms, device busy {busy * 1e3:.1f} ms ({100 * busy / wall:.1f}%), "
-        f"{sum(r[2] for r in rows)} kernel launches")
+        f"{launches} kernel launches")
     for t, name, n in rows[:12]:
         log(f"  {t / 1e3:9.2f} ms  x{n:<5d} {name[:90]}")
+    return dict(wall_ms=wall * 1e3, busy_ms=busy * 1e3,
+                busy_share=busy / wall, launches=launches)
 
 
 def profile_phase(slam, iters=8):
@@ -890,6 +928,264 @@ def network_phase(slam, dev):
                 f"{E} edges)", run)
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the tracker's self-trainer
+# ---------------------------------------------------------------------------
+
+def pretrained_hashes():
+    """SHA-256 of every file under pretrained/ (the trainer phase writes to
+    a temporary directory only)."""
+    out = {}
+    for root, _, files in os.walk(os.path.join(HERE, "pretrained")):
+        for f in sorted(files):
+            path = os.path.join(root, f)
+            with open(path, "rb") as fh:
+                out[os.path.relpath(path, HERE)] = hashlib.sha256(
+                    fh.read()).hexdigest()
+    return out
+
+
+def _zero_by_norm(name):
+    """fnet's conv biases but the last feed an InstanceNorm: zero gradient
+    analytically."""
+    return name.startswith("fnet.") and name.endswith(".bias") \
+        and name != "fnet.conv2.bias"
+
+
+def _loss_and_grads(model, fn):
+    import torch
+    model.zero_grad(set_to_none=True)
+    loss, metric = fn(model)
+    loss.backward()
+    grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
+             .detach().cpu() for n, p in model.named_parameters()}
+    gnorm = float(torch.linalg.vector_norm(
+        torch.cat([g.reshape(-1) for g in grads.values()]),
+        dtype=torch.float64))
+    return float(loss.detach()), float(metric.detach()), gnorm, grads
+
+
+def trainer_parity(dev):
+    """(a): one flow step and one DBA step on the card against the same on
+    the CPU, from one set of seeded float32 parameters and one batch.
+
+    Loss, metric and gradient norm are held to 1e-5 relative in the flow
+    step; in the DBA step loss and ATE to 1e-3 and the gradient norm to
+    5e-3 (its float32 floor is ~1e-3: tests/test_torch_train.py measured
+    the port's float32 value 7.5e-4 from its float64 one). Each gradient
+    tensor is held to a share of its max |g|: 2e-3 in the flow step; in
+    the DBA step 2e-2 for the update operator and 2e-1 for the encoders,
+    or three times the witness where that is more. The DBA step's
+    gradients are not reproducible in float32 to 1e-2: a 1e-6 relative
+    perturbation of the parameters (the witness, run here on the CPU and
+    printed beside each gap) moves the update operator's by up to ~5e-3
+    of their max and the encoders' by up to ~5e-2. 2e-1 still catches a
+    gradient the card computes wrong or not at all, an error of order 1;
+    the port against the JAX package is tests/test_torch_train.py's."""
+    import numpy as np
+    import torch
+    from splatslam_tpu_torch.models.weights import init_params
+    from splatslam_tpu_torch.train import droid_trainer as T
+
+    cpu = init_params(torch.Generator().manual_seed(0), device="cpu")
+    card = init_params(torch.Generator().manual_seed(0), device=dev)
+    witness = init_params(torch.Generator().manual_seed(0), device="cpu")
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for p in witness.parameters():
+            p.mul_(1.0 + 1e-6 * torch.randn(p.shape, generator=g))
+    pair = T.make_pair_batch(np.random.RandomState(0), 2, 96, 128)
+    seq = [x[0] for x in T.make_seq_batch(np.random.RandomState(0), 1, 7,
+                                          96, 128)]
+    cases = (
+        ("flow step (96x128, batch 2, 8 iterations)", "epe", pair,
+         lambda m, b: T.flow_loss(m, *b, iters=8), (1e-5, 1e-5, 1e-5),
+         lambda n: 2e-3),
+        ("DBA step (96x128, N=7, 4 rounds, one scene)", "ate", seq,
+         lambda m, b: T.dba_scene_loss(m, *b, N=7, iters=4),
+         (1e-3, 1e-3, 5e-3),
+         lambda n: 2e-2 if n.startswith("update.") else 2e-1))
+    for label, metric, batch, fn, rel_tol, tol in cases:
+        t0 = time.perf_counter()
+        ref = _loss_and_grads(cpu, lambda m: fn(m, batch))
+        cpu_s = time.perf_counter() - t0
+        wit = _loss_and_grads(witness, lambda m: fn(m, batch))
+        on_card = [t.to(dev) for t in batch]
+        got = _loss_and_grads(card, lambda m: fn(m, on_card))
+        rel = [abs(a - b) / abs(b) for a, b in zip(got[:3], ref[:3])]
+        gmax = max(float(g.abs().max()) for g in ref[3].values())
+        worst = {"update": (0.0, "", 0.0), "encoders": (0.0, "", 0.0)}
+        n_wide = 0
+        for n, g in ref[3].items():
+            if _zero_by_norm(n):
+                if max(float(g.abs().max()), float(got[3][n].abs().max())) \
+                        > 1e-6 * gmax:
+                    raise SystemExit(f"trainer parity: {n} has a gradient "
+                                     "where InstanceNorm makes it zero")
+                continue
+            scale = float(g.abs().max())
+            if scale == 0:
+                if float(got[3][n].abs().max()) != 0:
+                    raise SystemExit(f"trainer parity: {n}: a gradient on "
+                                     "the card only")
+                continue
+            gap = float((got[3][n] - g).abs().max()) / scale
+            floor = float((wit[3][n] - g).abs().max()) / scale
+            n_wide += floor > 1e-2
+            if gap > max(tol(n), 3 * floor):
+                raise SystemExit(f"trainer parity: {label}: {n} differs by "
+                                 f"{gap:.2e} of its max, above "
+                                 f"{max(tol(n), 3 * floor):.2e} (witness "
+                                 f"{floor:.2e})")
+            part = "update" if n.startswith("update.") else "encoders"
+            worst[part] = max(worst[part], (gap, n, floor))
+        wit_rel = [abs(a - b) / abs(b) for a, b in zip(wit[:3], ref[:3])]
+        log(f"trainer parity: {label}: card against CPU ({cpu_s:.1f} s on "
+            f"the CPU): loss {got[0]:.7g} vs {ref[0]:.7g} (rel "
+            f"{rel[0]:.2e}), {metric} {got[1]:.7g} vs {ref[1]:.7g} (rel "
+            f"{rel[1]:.2e}), gnorm {got[2]:.7g} vs {ref[2]:.7g} (rel "
+            f"{rel[2]:.2e}); witness rel " + ", ".join(
+                f"{x:.2e}" for x in wit_rel) + "; worst gradient gap " +
+            "; ".join(f"{k} {v[0]:.2e} of its max ({v[1]}, witness "
+                      f"{v[2]:.2e})" for k, v in worst.items()) +
+            f"; {n_wide} tensors move by more than 1e-2 of their max under "
+            "the witness")
+        for name, r, t in zip(("loss", metric, "gnorm"), rel, rel_tol):
+            if r > t:
+                raise SystemExit(f"trainer parity: {label}: {name} differs "
+                                 f"by {r:.2e} relative, above {t}")
+
+
+def _per_bucket(records, label):
+    """ms per step per image shape: the median after each shape's first two
+    steps (the first ones pay cuDNN's algorithm search and the
+    allocator's growth)."""
+    by = {}
+    for r in records["steps"]:
+        by.setdefault(r["shape"], []).append(r["ms"])
+    out = {}
+    for shape, ms in sorted(by.items()):
+        rest = sorted(ms[2:]) or sorted(ms)
+        out[f"{shape[0]}x{shape[1]}"] = rest[len(rest) // 2]
+        log(f"{label}: {shape[0]}x{shape[1]}: {len(ms)} steps, "
+            f"{rest[len(rest) // 2]:.1f} ms per step (median of "
+            f"{len(rest)}), all: " + ", ".join(f"{x:.1f}" for x in ms))
+    return out
+
+
+def trainer_phase(dev):
+    """Phase 13 (see the module docstring)."""
+    import tempfile
+    import numpy as np
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from splatslam_tpu_torch.models.weights import (init_params,
+                                                    load_droid_params,
+                                                    load_selftrained)
+    from splatslam_tpu_torch.train import droid_trainer as T
+
+    t_phase = time.perf_counter()
+    trainer_parity(dev)
+
+    _, hist = T.train(steps=8, batch=2, H=64, W=96, lr=4e-4, ckpt_path=None,
+                      log_every=4, pool=1, device=dev)
+    log(f"trainer descent: EPE {hist}")
+    if not (np.isfinite(hist).all() and hist[-1] < hist[0]):
+        raise SystemExit(f"trainer descent: EPE did not fall: {hist}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        flow_ckpt = os.path.join(tmp, "droid_selftrained.msgpack")
+        dba_ckpt = os.path.join(tmp, "droid_dba.msgpack")
+        rec = {}
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        T.train(steps=12, batch=4, lr=2e-4, buckets=T.FLOW_BUCKETS, iters=8,
+                pool=4, ckpt_path=flow_ckpt, log_every=1, device=dev,
+                records=rec)
+        flow_ms = _per_bucket(rec, "flow stage")
+        peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+        hist = [(r["loss"], r["epe"]) for r in rec["steps"]]
+        log(f"flow stage: pool render {rec['pool_render_s']:.2f} s (host, "
+            f"4 batches), peak {peak:.2f} GiB above the "
+            f"{held / 2 ** 30:.2f} GiB held before; loss/EPE "
+            + ", ".join(f"{a:.3f}/{b:.3f}" for a, b in hist))
+        if not np.isfinite(hist).all():
+            raise SystemExit("flow stage: a loss or EPE is not finite")
+
+        start = load_selftrained(flow_ckpt, device=dev)
+        heads = ("update.weight.2.weight", "update.agg.eta.0.weight")
+        before = {n: p.detach().clone() for n, p in start.named_parameters()
+                  if n in heads}
+        rec = {}
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        model, _ = T.train_dba(steps=8, batch=2, N=7, iters=8, lr=5e-5,
+                               buckets=T.FLOW_BUCKETS, pool=4,
+                               init_ckpt=flow_ckpt, ckpt_path=dba_ckpt,
+                               log_every=1, device=dev, records=rec)
+        dba_ms = _per_bucket(rec, "DBA stage")
+        peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+        hist = [(r["loss"], r["ate"], r["gnorm"]) for r in rec["steps"]]
+        log(f"DBA stage: pool render {rec['pool_render_s']:.2f} s (host, "
+            f"4 batches), peak {peak:.2f} GiB above the "
+            f"{held / 2 ** 30:.2f} GiB held before; loss/ATE/gnorm "
+            + ", ".join(f"{a:.4f}/{b:.4f}/{c:.2f}" for a, b, c in hist))
+        if not np.isfinite(hist).all() or min(h[2] for h in hist) <= 0:
+            raise SystemExit("DBA stage: a loss, ATE or gnorm is not finite "
+                             "and positive")
+        params = dict(model.named_parameters())
+        for n in heads:
+            moved = float((params[n].detach() - before[n]).abs().max())
+            log(f"DBA stage: {n} moved by up to {moved:.3e}")
+            if not moved > 0:
+                raise SystemExit(f"DBA stage: {n} did not move")
+
+        back = load_droid_params(dba_ckpt, device=dev, dtype=torch.float32)
+        for (n, a), b in zip(model.state_dict().items(),
+                             back.state_dict().values()):
+            if not torch.equal(a, b):
+                raise SystemExit(f"checkpoint: {n} read back differently")
+        net16 = load_droid_params(dba_ckpt, device=dev, dtype=torch.bfloat16)
+        g = torch.Generator(device="cpu").manual_seed(1)
+        x = [torch.randn((22, c, 30, 40), generator=g).to(dev)
+             for c in (128, 128, 196, 4)]
+        with torch.no_grad():
+            res = net16.update_step(*x)
+        if not all(bool(torch.isfinite(t).all()) for t in res):
+            raise SystemExit("checkpoint: the bf16 net gave a non-finite "
+                             "update")
+        log(f"checkpoint: {os.path.getsize(dba_ckpt)} bytes, read back "
+            "bit-identical in float32; bf16 update_step on 22 edges at "
+            "30x40 finite")
+
+    # (f) profile and FLOPs of one step of each stage at the large bucket
+    H, W, fx = T.FLOW_BUCKETS[-1]
+    big = f"{H}x{W}"
+    model = init_params(torch.Generator().manual_seed(0), device=dev)
+    opt = T.make_optimizer(model, 2e-4, 100)
+    pair = [t.to(dev) for t in T.make_pair_batch(np.random.RandomState(0), 4,
+                                                 H, W, fx)]
+    seq = [t.to(dev) for t in T.make_seq_batch(np.random.RandomState(0), 2,
+                                               7, H, W, fx)]
+    steps = (("flow", T.make_train_step(model, opt, iters=8), pair,
+              flow_ms[big]),
+             ("DBA", T.make_dba_train_step(model, opt, N=7, iters=8), seq,
+              dba_ms[big]))
+    for name, step, batch, ms in steps:
+        def run():
+            step(*batch)
+            torch.cuda.synchronize()
+        with FlopCounterMode(display=False) as fc:     # also the warm-up
+            run()
+        flops = fc.get_total_flops()
+        prof = profile_run(f"one {name} step at {big}", run, warmup=False)
+        log(f"{name} step at {big}: {flops / 1e12:.3f} TFLOP (forward, "
+            f"recompute and backward), {flops / ms / 1e9:.2f} TFLOP/s at "
+            f"the stage's {ms:.1f} ms per step, device busy "
+            f"{100 * prof['busy_share']:.1f}%, {prof['launches']} launches")
+    log(f"trainer phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv=None):
     import argparse
     import torch
@@ -902,6 +1198,8 @@ def main(argv=None):
     ap.add_argument("--prior-only", action="store_true",
                     help="only the build, the prior path, the DPT and mesh "
                     "phases and the recorded-sequence path")
+    ap.add_argument("--train-only", action="store_true",
+                    help="only the build and the trainer phase")
     ap.add_argument("--time-flags", default=None,
                     help="extra nvcc flags (space-separated; several sets "
                     "separated by '|', an empty set is the port's own "
@@ -922,6 +1220,7 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
 
+    hashes = pretrained_hashes()
     log("card: " + card_line())
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
@@ -934,6 +1233,16 @@ def main(argv=None):
             else set()
         time_flags.append([f for f in raster_cuda.NVCC_FLAGS if f not in drop]
                           + extra)
+    def check_pretrained():
+        if pretrained_hashes() != hashes:
+            raise SystemExit("a file under pretrained/ changed")
+        log(f"pretrained/: {len(hashes)} files unchanged")
+
+    if args.train_only:
+        trainer_phase(dev)
+        check_pretrained()
+        refuse_jax()
+        return 0
     if args.learned_only:
         _, learned, _ = learned_path(dev)
         kernel_phase("learned final window", *window_input(learned))
@@ -975,6 +1284,10 @@ def main(argv=None):
     dpt_phase(prior, dev)
     mesh_phase(prior, dev)
     counts_recorded = recorded_path(prior, dev)
+    del prior
+    torch.cuda.empty_cache()
+    trainer_phase(dev)
+    check_pretrained()
     src = "splatslam_tpu_torch/csrc/composite.cu"
     replaces = {"composite_fwd": "splatslam_tpu/ops/raster_pallas.py:333",
                 "composite_bwd": "splatslam_tpu/ops/raster_pallas.py:387"}

@@ -59,6 +59,14 @@ def droid_params_from_numpy(tree: dict) -> dict:
     return flax_tree_to_state_dict(tree)
 
 
+def droid_params_to_numpy(model) -> dict:
+    """The inverse of droid_params_from_numpy: the port's DroidNet → the
+    flax parameter tree of the JAX package's init_params (nested dicts of
+    float32 numpy arrays, kernels HWIO), the tree its checkpoints hold."""
+    from .models.weights import state_dict_to_flax_tree
+    return state_dict_to_flax_tree(model.state_dict())
+
+
 def dpt_params_from_numpy(tree: dict, device=None):
     """A flax DPTDepthModel parameter tree (nested dicts of numpy arrays,
     HWIO conv kernels, (in, out) dense kernels) → the port's DPTDepthModel

@@ -19,6 +19,10 @@ builds the net in `compute_dtype()` (bf16 unless SPLATSLAM_F32_NET is set);
 every entry point casts its inputs to the parameters' dtype, so
 activations are bf16 there, as in the JAX package. Bundle adjustment and
 the correlation volumes stay float32.
+
+Training (train/droid_trainer.py) builds the net with `trainable=True`:
+float32 parameters with gradients on, as the JAX trainer's DroidNet is
+float32. The tracker's default is unchanged: frozen, in compute_dtype().
 """
 
 from __future__ import annotations
@@ -55,8 +59,18 @@ def normalize_images(images: torch.Tensor) -> torch.Tensor:
 
 def _norm(x, norm_fn: str):
     """InstanceNorm2d as the reference uses it: no affine, eps 1e-5, biased
-    variance; cnet has none."""
+    variance; cnet has none.
+
+    Under autograd it is the JAX package's composition, (x − mean)·
+    rsqrt(var + eps): F.instance_norm's float32 backward on the CPU loses
+    up to 2% of an encoder weight's gradient (measured against float64 at
+    64×96), where the composition holds 1e-6. Inference keeps the fused
+    F.instance_norm (bf16 on the tracker's path)."""
     if norm_fn == "instance":
+        if x.requires_grad:
+            mean = x.mean((2, 3), keepdim=True)
+            var = ((x - mean) ** 2).mean((2, 3), keepdim=True)
+            return (x - mean) * torch.rsqrt(var + 1e-5)
         return F.instance_norm(x, eps=1e-5)
     if norm_fn == "none":
         return x
@@ -197,10 +211,15 @@ class UpdateModule(nn.Module):
 
 class DroidNet(nn.Module):
     """fnet (instance norm, 128 channels) + cnet (no norm, 256) + update
-    (reference droid_net.py:156-162). Inference only: built in eval mode
-    with gradients off. `device` None is the GPU (resolve_device)."""
+    (reference droid_net.py:156-162). `device` None is the GPU
+    (resolve_device).
 
-    def __init__(self, device=None, dtype=torch.float32, generator=None):
+    By default the tracker's network: eval mode, gradients off. With
+    `trainable=True` it is float32 with gradients on, in train mode (see
+    `make_trainable`)."""
+
+    def __init__(self, device=None, dtype=torch.float32, generator=None,
+                 trainable=False):
         super().__init__()
         device = resolve_device(device)
         self.fnet = BasicEncoder(128, "instance")
@@ -212,15 +231,35 @@ class DroidNet(nn.Module):
         self.to(device=device, dtype=dtype)
         self.requires_grad_(False)
         self.eval()
+        if trainable:
+            self.make_trainable()
+
+    def make_trainable(self):
+        """Gradients on and train mode, for the self-trainer. The network
+        holds no batch statistics (InstanceNorm without running stats, no
+        dropout), so train() and eval() compute the same values; the mode
+        is set only to say what the module is for."""
+        if self.dtype != torch.float32:
+            raise ValueError(f"a trainable DroidNet is float32, not "
+                             f"{self.dtype}")
+        self.requires_grad_(True)
+        return self.train()
 
     @torch.no_grad()
     def init_random(self, generator):
-        """Seeded initialisation: weights N(0, 1/fan_in), biases zero."""
+        """Flax's default initialisation of nn.Conv, drawn from `generator`:
+        kernels lecun_normal (a normal truncated to ±2 standard units and
+        rescaled to variance 1/fan_in, fan_in = in_channels·kh·kw), biases
+        zero. The values are not jax.random's; the distribution is."""
         for m in self.modules():
             if isinstance(m, nn.Conv2d):
                 fan_in = m.in_channels * m.kernel_size[0] * m.kernel_size[1]
-                m.weight.copy_(torch.randn(m.weight.shape, generator=generator)
-                               / math.sqrt(fan_in))
+                # the standard deviation of N(0,1) truncated to [-2, 2]
+                std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+                w = torch.empty(m.weight.shape, dtype=torch.float32)
+                nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0,
+                                      generator=generator)
+                m.weight.copy_(w * std)
                 m.bias.zero_()
 
     @property

@@ -13,6 +13,13 @@ a DroidNet (counterpart of splatslam_tpu/models/weights.py).
 `load_droid_params` falls back between checkpoints exactly as the JAX
 package does, with the same printed warnings, and records which file the
 weights came from in `model.weights_source` ("random" when none was found).
+
+The self-trainer's side: `init_params` (a float32 trainable net with Flax's
+initialisation), `save_droid_params` (the net as
+`flax.serialization.to_bytes` writes its parameter tree, by an own encoder
+of the same wire format) and `load_selftrained` (such a file back into a
+trainable net). A file the port writes is read by the JAX package's
+`load_selftrained` and by `tracking.pretrained` in both packages.
 """
 
 from __future__ import annotations
@@ -103,6 +110,70 @@ def _flax_ext(code, data):
     return np.frombuffer(buffer, dtype=np.dtype(dtype)).reshape(shape).copy()
 
 
+def _pack(obj, out: bytearray):
+    """Append the msgpack encoding of obj to out, in the smallest form, as
+    the msgpack package writes it. Only what a serialised parameter tree
+    holds: dicts with str keys, lists/tuples, str, bytes, non-negative
+    ints, and numpy arrays as flax's ext type 1."""
+    def head(n, fix, fix_max, codes):
+        if fix is not None and n <= fix_max:
+            out.append(fix | n)
+            return
+        for code, fmt in codes:
+            if n < (1 << (8 * struct.calcsize(fmt))):
+                out.append(code)
+                out.extend(struct.pack(">" + fmt, n))
+                return
+        raise ValueError(f"msgpack: {n} too large")
+
+    if isinstance(obj, dict):
+        head(len(obj), 0x80, 15, ((0xde, "H"), (0xdf, "I")))
+        for k, v in obj.items():
+            if not isinstance(k, str):
+                raise TypeError(f"msgpack: map key {k!r} is not a str")
+            _pack(k, out)
+            _pack(v, out)
+    elif isinstance(obj, (list, tuple)):
+        head(len(obj), 0x90, 15, ((0xdc, "H"), (0xdd, "I")))
+        for v in obj:
+            _pack(v, out)
+    elif isinstance(obj, str):
+        b = obj.encode()
+        head(len(b), 0xa0, 31, ((0xd9, "B"), (0xda, "H"), (0xdb, "I")))
+        out.extend(b)
+    elif isinstance(obj, bytes):
+        head(len(obj), None, 0, ((0xc4, "B"), (0xc5, "H"), (0xc6, "I")))
+        out.extend(obj)
+    elif isinstance(obj, int) and not isinstance(obj, bool) and obj >= 0:
+        head(obj, 0x00, 0x7f, ((0xcc, "B"), (0xcd, "H"), (0xce, "I"),
+                               (0xcf, "Q")))
+    elif isinstance(obj, np.ndarray):
+        # flax's _ndarray_to_bytes: (shape, dtype name, C-order buffer)
+        payload = bytearray()
+        _pack((tuple(int(d) for d in obj.shape), obj.dtype.name,
+               np.ascontiguousarray(obj).tobytes("C")), payload)
+        n = len(payload)
+        if n in (1, 2, 4, 8, 16):                  # fixext
+            out.append(0xd4 + n.bit_length() - 1)
+        else:
+            head(n, None, 0, ((0xc7, "B"), (0xc8, "H"), (0xc9, "I")))
+        out.append(1)
+        out.extend(payload)
+    else:
+        raise TypeError(f"msgpack: cannot encode {type(obj).__name__}")
+
+
+def write_msgpack_tree(tree, path):
+    """Write a parameter tree (nested dicts of numpy arrays) as
+    `flax.serialization.to_bytes` does: a msgpack map with str keys, each
+    array an ext type 1 holding msgpack (shape, dtype name, C-order
+    bytes)."""
+    out = bytearray()
+    _pack(tree, out)
+    with open(path, "wb") as f:
+        f.write(out)
+
+
 def read_msgpack_tree(path):
     """A flax-serialised parameter tree as nested dicts of numpy arrays."""
     with open(path, "rb") as f:
@@ -174,6 +245,29 @@ def flax_tree_to_state_dict(tree) -> dict:
     return state
 
 
+def state_dict_to_flax_tree(state) -> dict:
+    """The inverse of flax_tree_to_state_dict: a DroidNet state dict (torch
+    names, OIHW) → the flax parameter tree of `init_params()` in the JAX
+    package (nested dicts of float32 numpy arrays, kernels HWIO). Names
+    absent from the state (cnet's stride-1 blocks have no downsample) are
+    absent from the tree, as they are from flax's."""
+    tree = {}
+    for tname, path in MAPPING.items():
+        if f"{tname}.weight" not in state:
+            continue
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        w = state[f"{tname}.weight"].detach().float().cpu().numpy()
+        node["kernel"] = np.ascontiguousarray(w.transpose(2, 3, 1, 0))
+        node["bias"] = state[f"{tname}.bias"].detach().float().cpu().numpy()
+    left = set(state) - {f"{t}.{leaf}" for t in MAPPING
+                         for leaf in ("weight", "bias")}
+    if left:
+        raise KeyError(f"state entries with no flax name: {sorted(left)}")
+    return tree
+
+
 def torch_state_to_state_dict(state_dict) -> dict:
     """A reference `droid.pth` state dict → this DroidNet's: `module.`
     stripped (slam.py:77), the delta/weight heads sliced to 2 output
@@ -235,3 +329,34 @@ def load_droid_params(path: str, device=None, dtype=None, generator=None):
         generator = torch.Generator().manual_seed(0)
     model = DroidNet(device="cpu", generator=generator)
     return model.to(device=device, dtype=dtype)
+
+
+# ---------------------------------------------------------------------------
+# the self-trainer's checkpoints
+# ---------------------------------------------------------------------------
+
+def init_params(generator=None, device=None) -> DroidNet:
+    """A float32 trainable DroidNet with Flax's default initialisation
+    (DroidNet.init_random) drawn from `generator` (seed 0 when None), on
+    `device` (None is the GPU) — the counterpart of the JAX package's
+    init_params, which returns the parameter tree of such a net."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    return DroidNet(device=device, generator=generator, trainable=True)
+
+
+def save_droid_params(model, path):
+    """Write the net's parameters as the JAX package's self-trainer does
+    (`flax.serialization.to_bytes` of the init_params tree): the file is
+    read by `load_selftrained` and `load_droid_params` in both packages."""
+    from ..convert import droid_params_to_numpy
+    write_msgpack_tree(droid_params_to_numpy(model), path)
+
+
+def load_selftrained(path, device=None) -> DroidNet:
+    """A `.msgpack` written by either package's self-trainer → a float32
+    trainable DroidNet on `device` (None is the GPU)."""
+    device = resolve_device(device)
+    state = flax_tree_to_state_dict(read_msgpack_tree(path))
+    model = _model_from_state(state, device, torch.float32, path)
+    return model.make_trainable()

@@ -202,18 +202,22 @@ def dba(poses, disps, intrinsics, target, weight, eta, sensor_disps,
     target/weight (E,h,w,2); eta (M,h,w) per depth frame of edges.kx;
     sensor_disps (B,h,w) (zeros disable the prior). Returns new (poses,
     disps): poses[t0:t1] ← exp(dx) ∘ poses, disps[kx] ← max(disps + dz,
-    1e-5)."""
-    poses, disps = poses.clone(), disps.clone()
+    1e-5).
+
+    The updates are out of place (cat, index_copy), so the solver can be
+    differentiated through, checkpointed or not (the self-trainer)."""
     h, w = disps.shape[-2:]
     t0, t1 = edges.t0, edges.t1
     for _ in range(iters):
         dx, dz = _dba_iteration(poses, disps, intrinsics, target, weight,
                                 eta, sensor_disps, edges, lm, ep,
                                 motion_only)
-        poses[t0:t1] = lie.normalize(lie.retr(poses[t0:t1], dx))
+        poses = torch.cat([poses[:t0],
+                           lie.normalize(lie.retr(poses[t0:t1], dx)),
+                           poses[t1:]], 0)
         if dz is not None:
-            disps[edges.kx] = torch.clamp(
-                disps[edges.kx] + dz.reshape(-1, h, w), min=1e-5)
+            disps = disps.index_copy(0, edges.kx, torch.clamp(
+                disps[edges.kx] + dz.reshape(-1, h, w), min=1e-5))
     return poses, disps
 
 

@@ -67,10 +67,16 @@ def _bilinear_window_sample(volume, coords, radius: int):
     off = torch.arange(-radius, radius + 1, device=dev, dtype=volume.dtype)
 
     def hat(c, size):
-        # (N,H1,W1,rd,size): weight of integer position p for offset δ
+        # (N,H1,W1,rd,size): weight of integer position p for offset δ.
+        # The two kinks take JAX's subgradients, so that a coordinate that
+        # lands on an integer gets the gradient the JAX package gives it:
+        # |d| at d = 0 has slope +1 (jnp.abs; torch's abs gives 0), and
+        # max(0, ·) at a tie splits the gradient between its two sides
+        # (jnp.maximum and torch.maximum; clamp would pass all of it)
         p = torch.arange(size, device=dev, dtype=volume.dtype)
-        return torch.clamp(1.0 - (p - c[..., None, None]
-                                  - off[:, None]).abs(), min=0.0)
+        d = p - c[..., None, None] - off[:, None]
+        w = 1.0 - torch.where(d >= 0, d, -d)
+        return torch.maximum(w, torch.zeros((), dtype=w.dtype, device=dev))
 
     wy = hat(coords[..., 1].to(volume.dtype), H2)
     wx = hat(coords[..., 0].to(volume.dtype), W2)

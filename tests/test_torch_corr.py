@@ -154,3 +154,43 @@ def test_bf16_features_give_float32_volumes():
     out = tcorr.alt_corr(tcorr.build_fmap_pyramid(fb, 2),
                          torch.tensor([0]), torch.tensor([1]), coords)
     assert out.dtype == torch.float32 and out.shape == (1, 2 * 49, 6, 8)
+
+
+@pytest.mark.parametrize("radius", [1, 3])
+def test_lookup_gradient_at_integer_coordinates_matches_jax(radius):
+    """At integer coordinates every hat weight sits on a kink (|d| at
+    d = 0, max(0, 1 − |d|) at d = ±1): the coordinate gradient is the
+    subgradient JAX takes there (slope +1 for |0|, half from each side of
+    the tie), in both packages."""
+    import jax
+    rng = np.random.RandomState(3)
+    N, H, W = 2, 6, 9
+    vol = rng.randn(N, H, W, H, W).astype(np.float32)
+    coords = _grid(N, H, W) + rng.randint(-2, 3, (N, H, W, 2)).astype(
+        np.float32)
+    cot = rng.randn(N, H, W, (2 * radius + 1) ** 2).astype(np.float32)
+
+    def jloss(c):
+        return (jcorr.lookup_pyramid([jnp.asarray(vol)], c, radius)
+                * cot).sum()
+
+    gj = np.asarray(jax.grad(jloss)(jnp.asarray(coords)))
+    c = torch.tensor(coords, requires_grad=True)
+    out = tcorr.lookup_pyramid([torch.as_tensor(vol)], c, radius)
+    (out * _cf(cot)).sum().backward()
+    np.testing.assert_allclose(c.grad.numpy(), gj, **TIGHT)
+    # the kinks really are hit: torch's own subgradients (abs, clamp) give
+    # another gradient
+    c2 = torch.tensor(coords, requires_grad=True)
+    v = torch.as_tensor(vol)
+    p = torch.arange(W, dtype=torch.float32)
+    off = torch.arange(-radius, radius + 1, dtype=torch.float32)
+    wx = torch.clamp(1.0 - (p - c2[..., 0, None, None] - off[:, None]).abs(),
+                     min=0.0)
+    py = torch.arange(H, dtype=torch.float32)
+    wy = torch.clamp(1.0 - (py - c2[..., 1, None, None]
+                            - off[:, None]).abs(), min=0.0)
+    one_sided = torch.matmul(wx, torch.matmul(wy, v).transpose(-1, -2))
+    (one_sided.reshape(out.permute(0, 2, 3, 1).shape)
+     * torch.as_tensor(cot)).sum().backward()
+    assert np.abs(c2.grad.numpy() - gj).max() > 1e-2

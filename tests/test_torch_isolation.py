@@ -262,3 +262,48 @@ def test_tracker_constructor_defaults_to_the_gpu(name, monkeypatch):
         make(None)
     if fn is not None:
         assert inspect.signature(fn).parameters["device"].default is None
+
+
+def _trainer_entry_points(tmp_path):
+    """name -> (callable(device), function that has the `device` parameter
+    or None) for the self-trainer's public entry points, at a tiny size."""
+    from splatslam_tpu_torch import train_droid
+    from splatslam_tpu_torch.models import weights
+    from splatslam_tpu_torch.train import droid_trainer as T
+    ckpt = str(tmp_path / "net.msgpack")
+    weights.save_droid_params(weights.init_params(device="cpu"), ckpt)
+    small = dict(steps=1, batch=1, H=64, W=96, iters=1, pool=1,
+                 ckpt_path=None)
+    return {
+        "train": (lambda d: T.train(**small, device=d)[0], T.train),
+        "train_dba": (lambda d: T.train_dba(
+            **dict(small, N=3), init_ckpt=ckpt, device=d)[0], T.train_dba),
+        "init_params": (lambda d: weights.init_params(device=d),
+                        weights.init_params),
+        "load_selftrained": (lambda d: weights.load_selftrained(ckpt,
+                                                                device=d),
+                             weights.load_selftrained),
+        "train_droid": (lambda d: train_droid.main(
+            ["--steps", "1", "--batch", "1", "--pool", "1", "--buckets",
+             "small", "--out", str(tmp_path / "cli.msgpack")]
+            + (["--device", d] if d else [])), None),
+    }
+
+
+@pytest.mark.parametrize("name", ["train", "train_dba", "init_params",
+                                  "load_selftrained", "train_droid"])
+def test_trainer_entry_point_defaults_to_the_gpu(name, tmp_path,
+                                                 monkeypatch):
+    """The trainer, its network constructors and its CLI run on the CPU
+    only when asked; without a GPU and without a device they raise."""
+    import inspect
+    make, fn = _trainer_entry_points(tmp_path)[name]
+    out = make("cpu")
+    if isinstance(out, torch.nn.Module):
+        assert all(p.device.type == "cpu" and p.requires_grad
+                   for p in out.parameters())
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make(None)
+    if fn is not None:
+        assert inspect.signature(fn).parameters["device"].default is None

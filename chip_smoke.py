@@ -5,6 +5,9 @@
     python3 chip_smoke.py --learned-only   # phases 1-2 and 7-8 only
     python3 chip_smoke.py --prior-only     # phases 1-2 and 9-12 only
     python3 chip_smoke.py --train-only     # phases 1-2 and 13 only
+    python3 chip_smoke.py --last-only      # phases 1-2 and 14-17 only
+    python3 chip_smoke.py --multidevice-only  # phases 1-2 and 14 only (on
+        # a machine with several cards, phase 14 also splits over them)
     python3 chip_smoke.py --kernels-only "--time-flags= |-fmad=true"
         # also time the kernels built with other nvcc flags (here: the
         # port's own and -fmad=true) and report how far their results move
@@ -97,15 +100,54 @@ Phases, each unguarded (any failure exits non-zero):
          FlopCounterMode;
      every file under pretrained/ hashes the same before and after the
      script;
- 14. the kernels JSON line, then the device JSON line last.
+ 14. multi-device phase (camera-parallel mapping, run right after phase 6
+     on phase 4's final window): one map_step_n segment of that window (9
+     cameras, 320x640, capacity 131072, K 256) over ["cuda:0"] * 2 and
+     ["cuda:0"] * 3 (and over cuda:0-1 and cuda:0-2 where that many cards
+     are visible) against one device, batched (5 iterations) and one
+     camera per step, each shard with its own replica of the map; gates:
+     loss rtol 1e-5; for xyz and opacity the elements outside the JAX
+     suite's mesh tolerances (atol 1e-5, rtol 1e-4), for n_touched the
+     unequal ones, no more than 4x what two more one-device runs differ
+     from the first by, plus 64 (B2's float atomics: one device does not
+     reproduce itself on the card, and the shards' other summation order
+     about doubles the count; the CPU tests hold the exact tolerances);
+     B1/B2 launched once per shard and iteration, no plain compositor
+     call; the gate must reject two faults planted over ["cuda:0"] * 2 (a
+     double Adam step, replicas never refreshed: each moves tens of
+     thousands of elements); B1/B2 against their plain versions on one
+     shard's rows; then smoke_oracle.yaml, uncut, with
+     mapping.mesh_devices 2: on one card the mapper falls back with JAX's
+     message (on several it splits over two), and the run passes the
+     oracle gate (kf-ATE <= 0.01);
+ 15. loop phase: tests/test_loop_closure.py's pendulum configuration (100
+     frames, 96x128, loop_period 48, tracking only, final BA off) with loop
+     closure on and off: loop_ba calls, edges per call and kf-ATE of both
+     arms; gates: a loop_ba call built edges, the loop arm's kf-ATE is
+     finite and at most 0.25; and the learned path's loop_ba calls;
+ 16. trace phase: `python -m splatslam_tpu_torch.run` on smoke_oracle.yaml
+     cut to 12 frames, without and with `--profile DIR`: gates: the trace
+     exists and names composite_fwd, composite_bwd and the loop's phases;
+     its size and the run's wall both ways; and the gate that the learned
+     path called on_frame once per frame (every SLAM path of this script
+     records the hook and is held to it);
+ 17. tools phase: the port's flow probe and admission calibration on
+     pretrained/droid_dba.msgpack at 240x320 and the ate_matrix `base`
+     arm, every printed line; gate: the card's gap-1 EPE within 1e-3
+     relative of a CPU float32 run;
+ 18. the kernels JSON line, then the device JSON line last.
 
 The machine this script is written for has numpy, scipy, cv2 and PIL and no
 matplotlib: every path runs with `eval_plots` off (panels and trajectory
 figures are drawn on a machine that has matplotlib, see the README), and
 phase 12 needs cv2.
 
-`--learned-only` skips phases 3-6 and 9-13, `--prior-only` phases 3-8 and 13,
-`--train-only` phases 3-12 (none of them prints the kernels line).
+`--learned-only` skips phases 3-6 and 9-17, `--prior-only` phases 3-8 and
+13-17, `--train-only` phases 3-12 and 14-17, `--last-only` phases 3 and 5-13
+but runs phase 4 (the input of phase 14) and phase 7's learned path (whose
+hook and loop_ba calls phases 15 and 16 read) without their kernel checks,
+`--multidevice-only` runs phase 4 and phase 14 (none of them prints the
+kernels line).
 
 Exits non-zero without printing a result when no CUDA device is present,
 or when the port's package is not beside this script.
@@ -398,9 +440,10 @@ def kernel_phase(label, packets, tile_ids, counts, ntx, time_flags=None):
     }
 
 
-def window_input(slam):
-    """Packets and tile lists of the main path's final keyframe window, as
-    map_step_n's loop makes them: (packets, tile_ids, counts, ntx)."""
+def window_input(slam, rows=slice(None)):
+    """Packets and tile lists of the main path's final keyframe window (its
+    `rows`), as map_step_n's loop makes them: (packets, tile_ids, counts,
+    ntx)."""
     import torch
     from splatslam_tpu_torch.mapping import gaussians as G, mapper as M
     from splatslam_tpu_torch.ops import rasterizer as R
@@ -408,7 +451,7 @@ def window_input(slam):
     st = mp.st
     with torch.no_grad():
         w2cs = mp._stack_cams([mp.viewpoints[k]
-                               for k in mp.current_window])[0]
+                               for k in mp.current_window])[0][rows]
         B, N = w2cs.shape[0], st.capacity
         tile_ids, counts = M._rebin(st, w2cs, mp.intrinsics, H=mp.H, W=mp.W,
                                     K=mp.K, margin=4.0,
@@ -576,24 +619,49 @@ FINITE = ("ate_rmse", "full_ate_rmse", "psnr", "ssim", "depth_l1",
           "proxy_depth_l1")
 
 
+def spy_loop_ba(edges):
+    """Backend.loop_ba, recording each call's edge count into `edges`;
+    returns the original to put back."""
+    from splatslam_tpu_torch.tracking import backend as BK
+    orig = BK.Backend.loop_ba
+
+    def spy(self, *a, **kw):
+        win, n_edges = orig(self, *a, **kw)
+        edges.append(n_edges)
+        return win, n_edges
+
+    BK.Backend.loop_ba = spy
+    return orig
+
+
 def run_slam(label, cfg, dev):
     """One SLAM run with every launch count reset just before and read just
-    after: (launch counts, SLAM object, results). Fails on a non-finite
-    result, a kernel that never launched or a plain compositor call."""
+    after: (launch counts, SLAM object, results). The results also hold the
+    run's on_frame calls ("frames") and the edge count of each loop_ba call
+    ("loop_edges"). Fails on a non-finite result, a kernel that never
+    launched, a plain compositor call or an on_frame hook not called once
+    per frame in order."""
     import torch
     from splatslam_tpu_torch import slam as slam_mod
     from splatslam_tpu_torch.ops import raster_cuda, rasterizer as R
+    from splatslam_tpu_torch.tracking import backend as BK
+    frames, loop_edges = [], []
     raster_cuda.reset_launch_counts()
     for k in R.plain_calls:
         R.plain_calls[k] = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     slam = slam_mod.SLAM(cfg, device=dev)
-    res = slam.run()
+    orig = spy_loop_ba(loop_edges)
+    try:
+        res = slam.run(on_frame=lambda i, ts, kf: frames.append((i, ts, kf)))
+    finally:
+        BK.Backend.loop_ba = orig
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(raster_cuda.launches)
     plain = dict(R.plain_calls)
+    res.update(frames=frames, loop_edges=loop_edges)
     log(f"{label}: weights {res['weights']} frames {res['n_frames']} "
         f"keyframes {res['n_keyframes']} mapped "
         f"{len(slam.mapper.viewpoints)} wall {wall:.1f} s fps "
@@ -605,6 +673,12 @@ def run_slam(label, cfg, dev):
     log(f"launches on the {label}: {counts}; plain compositing calls "
         f"{plain}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"{label}: on_frame called {len(frames)} times (last "
+        f"{frames[-1] if frames else None}); fe.loop_ba calls "
+        f"{slam.timers.count.get('fe.loop_ba', 0)}, loop_ba edges "
+        f"{loop_edges}")
+    if [f[0] for f in frames] != list(range(res["n_frames"])):
+        raise SystemExit(f"{label}: on_frame was not called once per frame")
     for name in FINITE:
         v = res[name]
         if v is None or not math.isfinite(v):
@@ -619,9 +693,9 @@ def run_slam(label, cfg, dev):
     return counts, slam, res
 
 
-def smoke_cfg(out_name):
+def smoke_cfg(out_name, path="configs/Synthetic/smoke.yaml"):
     from splatslam_tpu_torch.config import load_config
-    cfg = load_config(os.path.join(HERE, "configs/Synthetic/smoke.yaml"),
+    cfg = load_config(os.path.join(HERE, path),
                       os.path.join(HERE, "configs/splat_slam.yaml"))
     cfg["data"]["output"] = os.path.join(HERE, "chiprun_out", out_name)
     cfg["verbose"] = False
@@ -1186,6 +1260,455 @@ def trainer_phase(dev):
     log(f"trainer phase: {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phases 14-17: camera-parallel mapping, loop closure, trace and hook, tools
+# ---------------------------------------------------------------------------
+
+class _Tee:
+    """Standard output that is also kept, to look for a printed line."""
+
+    def __init__(self, out):
+        import io
+        self.out, self.kept = out, io.StringIO()
+
+    def write(self, text):
+        self.kept.write(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def multidevice_segments(slam, iters=5):
+    """One map_step_n segment on the main path's final window over
+    ["cuda:0"] * 2 and ["cuda:0"] * 3 (and, where that many cards are
+    visible, over cuda:0, cuda:1[, cuda:2]) against one device, per_step
+    False and True, from the same map, run twice. Frozen (every learning
+    rate 0, so the map and the poses stay put and B2's float atomics cannot
+    compound over the iterations): parameters, poses, radii, n_touched,
+    denom and max_radii2D equal to one device's, the loss within rtol 1e-5
+    (the JAX mesh test's), the Adam moments, grad_accum and the exposure
+    rows within 1e-2 in the L2 norm (on a converged map the per-camera
+    gradients nearly cancel, so their sum in another order is not held
+    elementwise; a second Adam step moves the moments by ~80%). Live (the
+    mapper's learning rates, where one device does not reproduce itself):
+    the loss within rtol 1e-5 of the range four one-device runs span.
+    Both: B1/B2 launched once per shard and iteration and no plain
+    compositor call. The gates must reject two planted faults over
+    ["cuda:0"] * 2, a double Adam step and replicas never refreshed.
+    Returns the kernels' launches over the sharded segments."""
+    import contextlib
+    import types
+    import torch
+    from splatslam_tpu_torch.mapping import gaussians as G, mapper as M
+    from splatslam_tpu_torch.ops import raster_cuda, rasterizer as R
+    mp = slam.mapper
+    st0 = mp.st
+    cams = [mp.viewpoints[k] for k in mp.current_window]
+    w2cs, imgs, deps, expo, use_exp, valid = mp._stack_cams(cams)
+    B = len(cams)
+    dev = w2cs.device
+    pose_mask = (torch.arange(B, device=dev) > 0) & (
+        torch.arange(B, device=dev) < mp.pose_window)
+    op = mp.opt
+    lr_sched = (op["position_lr_init"] * 6.0, op["position_lr_final"] * 6.0,
+                op["position_lr_delay_mult"], op["position_lr_max_steps"])
+    lrs = dict(xyz=0.0, f_dc=op["feature_lr"], f_rest=op["feature_lr"] / 20,
+               opacity=op["opacity_lr"], scaling=op["scaling_lr"] * 6.0,
+               rotation=op["rotation_lr"])
+    cam_lrs = (0.5 * mp.lr_cam_trans, 0.5 * mp.lr_cam_rot)
+    log(f"multi-device input: the main path's final window, {B} cameras "
+        f"{mp.H}x{mp.W}, capacity {st0.capacity} "
+        f"({int(st0.alive.sum())} alive), K {mp.K}; {iters} iterations "
+        f"batched, {B} per step; poses optimised on rows 1..."
+        f"{int(pose_mask.sum())}")
+
+    def segment(devices, per_step, frozen):
+        st = G.GaussianState(**{k: v.clone() for k, v in vars(st0).items()})
+        z = lambda n: torch.zeros((B, n), device=dev)
+        n = B if per_step else iters
+        raster_cuda.reset_launch_counts()
+        for k in R.plain_calls:
+            R.plain_calls[k] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = M.map_step_n(
+            st, (z(2), z(2)), (z(6), z(6)), w2cs, imgs, deps, expo, use_exp,
+            valid, pose_mask, mp.intrinsics,
+            dict.fromkeys(lrs, 0.0) if frozen else lrs,
+            (0.0, 0.0) if frozen else cam_lrs,
+            mp.iteration_count, n, 0.0 if per_step else 10.0, H=mp.H,
+            W=mp.W, K=mp.K, use_ssim=mp.use_ssim, alpha=mp.alpha,
+            lr_sched=None if frozen else lr_sched, opt_poses=True,
+            sh_degree=mp.sh_degree, rebin_every=mp.rebin_every,
+            max_span=mp.max_span, per_step_cams=per_step, devices=devices)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / n
+        return out, ms, dict(raster_cuda.launches), dict(R.plain_calls), n
+
+    exact = G.PARAM_NAMES + ("denom", "max_radii2D", "w2cs", "radii",
+                             "n_touched")
+
+    def frozen_diff(a, b):
+        """{quantity: (|a - b| / |b| in the L2 norm, max|a - b| / max|b|)}
+        of two frozen segments' outputs."""
+        st_a, st_b = a[0], b[0]
+        pairs = {n: (getattr(st_a, n), getattr(st_b, n))
+                 for n in G.PARAM_NAMES + ("denom", "max_radii2D",
+                                           "grad_accum")}
+        pairs.update({f"{p}_{n}": (getattr(st_a, f"{p}_{n}"),
+                                   getattr(st_b, f"{p}_{n}"))
+                      for n in G.PARAM_NAMES for p in "mv"})
+        pairs.update(w2cs=(a[3], b[3]), exposure=(a[4], b[4]),
+                     radii=(a[5], b[5]), n_touched=(a[6], b[6]),
+                     em=(a[1][0], b[1][0]), ev=(a[1][1], b[1][1]),
+                     tm=(a[2][0], b[2][0]), tv=(a[2][1], b[2][1]),
+                     loss=(a[-1], b[-1]))
+        l2 = torch.linalg.vector_norm
+        mx = lambda t: t.abs().max()
+        rel = lambda x, y, norm: (norm(x.double() - y.double())
+                                  / norm(y.double()).clamp(min=1e-30)).item()
+        return {k: (rel(x, y, l2), rel(x, y, mx))
+                for k, (x, y) in pairs.items() if y.numel()}
+
+    def frozen_ok(d):
+        return all(d[k][1] == 0 for k in exact if k in d) and \
+            d["loss"][0] <= 1e-5 and all(v[0] <= 1e-2 for k, v in d.items()
+                                         if k not in exact and k != "loss")
+
+    def frozen_fmt(d):
+        worst = max((k for k in d if k not in exact and k != "loss"),
+                    key=lambda k: d[k][0])
+        bad = [k for k in exact if k in d and d[k][1] != 0]
+        return (f"loss rel {d['loss'][0]:.2e} (tol 1e-5); exact quantities "
+                f"unequal: {bad or 'none'}; largest L2-relative difference "
+                f"{worst} {d[worst][0]:.2e} (tol 1e-2; its largest element "
+                f"{d[worst][1]:.2e} of the field's largest value)")
+
+    def live_rel(a, losses):
+        """How far a live segment's loss lies outside the range of the
+        one-device runs' losses, relative to it (0 inside)."""
+        x, lo, hi = float(a[-1]), min(losses), max(losses)
+        return max(lo - x, x - hi, 0.0) / abs(hi)
+
+    def live_counts(a, b):
+        """Elements of a live segment's output outside the JAX mesh
+        tolerances against b (n_touched exact). Logged, not gated: B2's
+        float atomics compound over a live segment, so one device does not
+        reproduce them."""
+        d = {}
+        for name in ("xyz", "opacity"):
+            x, y = getattr(a[0], name), getattr(b[0], name)
+            d[name] = ((x - y).abs().max().item(), int((~torch.isclose(
+                x, y, atol=1e-5, rtol=1e-4)).sum()))
+        d["n_touched"] = ((a[6] - b[6]).abs().max().item(),
+                          int((a[6] != b[6]).sum()))
+        return ", ".join(f"{k} max|d| {m:.2e} outside {c}"
+                         for k, (m, c) in d.items())
+
+    lists = [(f"{n} entries of {dev}", [dev] * n) for n in (2, 3)]
+    lists += [(f"cuda:0-{n - 1}", [torch.device("cuda", i) for i in range(n)])
+              for n in (2, 3) if torch.cuda.device_count() >= n]
+
+    @contextlib.contextmanager
+    def planted(fault):
+        """A fault the gates must reject: the map stepped by Adam twice per
+        iteration (once per shard), or the replicas never refreshed."""
+        if fault == "double Adam step":
+            orig, name, mod = G.adam_step, "adam_step", G
+
+            def fn(st, *a, **kw):
+                orig(st, *a, **kw)
+                return orig(st, *a, **kw)
+        else:
+            orig, name, mod = M._step_shards, "_step_shards", M
+
+            def fn(st, reps, *a, **kw):
+                return orig(st, [types.SimpleNamespace(**{
+                    n: v.clone() for n, v in vars(r).items()})
+                    for r in reps], *a, **kw)
+        setattr(mod, name, fn)
+        try:
+            yield
+        finally:
+            setattr(mod, name, orig)
+
+    total = {"composite_fwd": 0, "composite_bwd": 0}
+    for per_step in (False, True):
+        kind = "per_step" if per_step else "batched"
+        one = {}
+        for frozen in (True, False):
+            mode = "frozen" if frozen else "live"
+            runs = [segment(None, per_step, frozen)
+                    for _ in range(2 if frozen else 4)]
+            one[frozen], ms1, _, _, n = runs[0]
+            if frozen:
+                same = frozen_fmt(frozen_diff(runs[1][0], one[True]))
+            else:
+                losses = [float(r[0][-1]) for r in runs]
+                same = (f"loss {min(losses):.7f}-{max(losses):.7f} over "
+                        f"{len(runs)} runs (spread rel "
+                        f"{(max(losses) - min(losses)) / max(losses):.2e}); "
+                        f"second against first: "
+                        f"{live_counts(runs[1][0], one[False])}")
+            log(f"multi-device ({kind}, {mode}): one device "
+                + " / ".join(f"{r[1]:.1f}" for r in runs)
+                + f" ms per iteration; against itself: {same}")
+            for label, devices in lists:
+                out, ms, launches, plain, _ = segment(devices, per_step,
+                                                      frozen)
+                shards = 1 if per_step else min(len(devices), B)
+                want = shards * n
+                if frozen:
+                    d = frozen_diff(out, one[frozen])
+                    ok, got = frozen_ok(d), frozen_fmt(d)
+                else:
+                    rel = live_rel(out, losses)
+                    ok = rel <= 1e-5
+                    got = (f"loss {float(out[-1]):.7f}, outside one "
+                           f"device's range by rel {rel:.2e} (tol 1e-5); "
+                           f"against the first one-device run "
+                           f"{live_counts(out, one[False])} (outside atol "
+                           f"1e-5 / rtol 1e-4 for xyz and opacity, unequal "
+                           f"for n_touched; not gated)")
+                log(f"multi-device ({kind}, {mode}) over {label}: {ms:.1f} "
+                    f"ms per iteration ({ms / ms1:.2f}x one device); {got}; "
+                    f"launches {launches} (want {want} each), plain calls "
+                    f"{plain}")
+                if not ok:
+                    raise SystemExit(f"multi-device segment ({kind}, {mode}, "
+                                     f"{label}) disagrees with one device")
+                if any(plain.values()) or any(v != want
+                                              for v in launches.values()):
+                    raise SystemExit(f"multi-device segment ({kind}, {mode}, "
+                                     f"{label}) launched {launches}, plain "
+                                     f"{plain}")
+                for k in total:
+                    total[k] += launches[k]
+        if per_step:
+            continue
+        for fault in ("double Adam step", "replicas never refreshed"):
+            with planted(fault):
+                fz, _, _, _, _ = segment([dev] * 2, per_step, True)
+                lv, _, _, _, _ = segment([dev] * 2, per_step, False)
+            d = frozen_diff(fz, one[True])
+            rel = live_rel(lv, losses)
+            log(f"multi-device gates against a planted fault ({kind}, "
+                f"{fault}, 2 entries of {dev}): frozen {frozen_fmt(d)}; live "
+                f"loss outside one device's range by rel {rel:.2e} (tol "
+                f"1e-5), {live_counts(lv, one[False])}")
+            if frozen_ok(d) and rel <= 1e-5:
+                raise SystemExit(f"the multi-device gates let the planted "
+                                 f"fault through: {fault}")
+    return total
+
+
+def multidevice_phase(slam, dev):
+    """Phase 14: the segments, B1/B2 against their plain versions on one
+    shard's rows (the middle third of the window, as the 3-entry list
+    splits it), then smoke_oracle.yaml, uncut, with mapping.mesh_devices 2:
+    on one card the mapper falls back with JAX's message (on several it
+    splits over two) and the run passes the oracle gate."""
+    import contextlib
+    import torch
+    total = multidevice_segments(slam)
+    B = len(slam.mapper.current_window)
+    r = torch.tensor_split(torch.arange(B), 3)[1]
+    rows = slice(int(r[0]), int(r[-1]) + 1)
+    shard = kernel_phase(f"multi-device shard 2 of 3 (window rows "
+                         f"{rows.start}-{rows.stop - 1})",
+                         *window_input(slam, rows))
+    cfg = smoke_cfg("smoke_output_mesh", "configs/Synthetic/smoke_oracle.yaml")
+    cfg["mapping"]["mesh_devices"] = 2
+    n_vis = torch.cuda.device_count()
+    log(f"multi-device SLAM: smoke_oracle.yaml with mapping.mesh_devices 2, "
+        f"{n_vis} visible card(s); cuts: none")
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        counts, mslam, res = run_slam("mesh_devices 2 path", cfg, dev)
+    line = ("[mapper] mesh_devices=2 requested but only 1 devices visible — "
+            "running single-chip")
+    if n_vis < 2:
+        if line not in tee.kept.getvalue() or mslam.mapper.devices is not None:
+            raise SystemExit("mesh_devices 2 on one card did not fall back "
+                             "with JAX's message")
+        log("multi-device SLAM: fell back with JAX's message")
+    elif len(mslam.mapper.devices or ()) != 2:
+        raise SystemExit(f"mesh_devices 2 on {n_vis} cards mapped on "
+                         f"{mslam.mapper.devices}")
+    if res["ate_rmse"] > 0.01:
+        raise SystemExit(f"mesh_devices 2 path kf-ATE {res['ate_rmse']} "
+                         "above 0.01")
+    return total, shard
+
+
+def pendulum_cfg(enable_loop, out_name):
+    """tests/test_loop_closure.py's configuration: smoke.yaml tracking only,
+    100 frames at 96x128 on the pendulum trajectory (loop_period 48, so the
+    camera retraces its path), final BA off."""
+    cfg = smoke_cfg(out_name)
+    cfg.update(only_tracking=True, max_frames=100, eval_full_traj=False)
+    cfg["synthetic"] = dict(cfg.get("synthetic", {}), n_frames=100, seed=11,
+                            motion_scale=8.0, loop_period=48)
+    cfg["cam"] = dict(cfg["cam"], H=96, W=128, fx=80.0, fy=80.0, cx=63.5,
+                      cy=47.5, H_out=96, W_out=128, H_edge=0, W_edge=0)
+    tr = cfg["tracking"]
+    tr.update(buffer=96, warmup=5)
+    tr["motion_filter"]["thresh"] = 0.8
+    tr["frontend"].update(keyframe_thresh=0.4, window=10, max_factors=48,
+                          enable_loop=enable_loop, enable_online_ba=False)
+    tr["backend"].update(final_ba=False, loop_window=16, loop_nms=4,
+                         loop_thresh=30.0)
+    cfg["mono_prior"]["provider"] = "oracle"
+    return cfg
+
+
+def loop_phase(dev, learned_res):
+    """Phase 15: the pendulum configuration with loop closure on and off.
+    Gates: loop_ba fired with edges at least once, the loop arm's kf-ATE
+    finite and at most 0.25. Also logs the learned path's loop_ba calls."""
+    from splatslam_tpu_torch import slam as slam_mod
+    from splatslam_tpu_torch.tracking import backend as BK
+    arms = {}
+    for enable in (True, False):
+        edges = []
+        cfg = pendulum_cfg(enable, f"pendulum_{'loop' if enable else 'noloop'}")
+        t0 = time.perf_counter()
+        slam = slam_mod.SLAM(cfg, device=dev)
+        orig = spy_loop_ba(edges)
+        try:
+            res = slam.run()
+        finally:
+            BK.Backend.loop_ba = orig
+        wall = time.perf_counter() - t0
+        calls = slam.timers.count.get("fe.loop_ba", 0)
+        arms[enable] = (res["ate_rmse"], edges)
+        log(f"loop phase, loop {'on' if enable else 'off'}: frames "
+            f"{res['n_frames']} keyframes {res['n_keyframes']} wall "
+            f"{wall:.1f} s kf-ATE {res['ate_rmse']}; fe.loop_ba calls "
+            f"{calls} ({res['timers'].get('fe.loop_ba', 0.0):.2f} s), "
+            f"edges per call {edges}, of which loop calls with edges "
+            f"{sum(1 for e in edges if e > 0)}")
+    ate, edges = arms[True]
+    log(f"loop phase: kf-ATE loop on {ate} vs off {arms[False][0]} (the "
+        "JAX suite's CPU run: 0.2020 vs 0.2104); a record, the gates are "
+        "edges and the 0.25 bound")
+    if not edges or max(edges) <= 0:
+        raise SystemExit(f"loop closure never built an edge: {edges}")
+    if ate is None or not math.isfinite(ate) or ate > 0.25:
+        raise SystemExit(f"loop arm kf-ATE {ate} not within 0.25")
+    log(f"learned path (smoke.yaml): fe.loop_ba calls "
+        f"{len(learned_res['loop_edges'])}, edges per call "
+        f"{learned_res['loop_edges']}")
+
+
+def trace_phase(dev, learned_res, n=12):
+    """Phase 16: `python -m splatslam_tpu_torch.run` on smoke_oracle.yaml cut
+    to `n` frames, without and then with `--profile DIR`. Gates: the trace
+    exists and names both kernels and the loop's phases. Records its size
+    and the run's wall both ways. Then the on_frame gate on the learned
+    path."""
+    import yaml
+    from splatslam_tpu_torch import run as run_mod
+    from splatslam_tpu_torch.utils.profiling import TRACE_FILE
+    import shutil
+    walls = {}
+    # under build/ (ignored by git): the trace is measured, then deleted
+    root = os.path.join(HERE, "build", "trace_phase")
+    trace_dir = os.path.join(root, "trace")
+    shutil.rmtree(root, ignore_errors=True)
+    for traced in (False, True):
+        tag = "traced" if traced else "plain"
+        cfg = smoke_cfg("unused", "configs/Synthetic/smoke_oracle.yaml")
+        cfg.pop("inherit_from", None)
+        cfg.update(max_frames=n, eval_full_traj=False)
+        cfg["synthetic"]["n_frames"] = n
+        cfg["data"]["output"] = os.path.join(root, tag)
+        path = os.path.join(root, f"{tag}.yaml")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w") as f:
+            yaml.dump(cfg, f)
+        t0 = time.perf_counter()
+        run_mod.main([path] + (["--profile", trace_dir] if traced else []))
+        walls[traced] = time.perf_counter() - t0
+    trace = os.path.join(trace_dir, TRACE_FILE)
+    if not os.path.exists(trace):
+        raise SystemExit("--profile wrote no trace")
+    mb = os.path.getsize(trace) / 2**20
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    n_kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    shutil.rmtree(root, ignore_errors=True)
+    kernels = {k: sorted(x for x in names if k in x)
+               for k in ("composite_fwd", "composite_bwd")}
+    log(f"trace phase: smoke_oracle.yaml cut to {n} frames (depth only); "
+        f"wall {walls[False]:.1f} s plain, {walls[True]:.1f} s traced "
+        f"(overhead {walls[True] - walls[False]:.1f} s, "
+        f"{100 * (walls[True] / walls[False] - 1):.0f}%); trace {mb:.1f} MB, "
+        f"{len(events)} events, {n_kernels} device kernels, {len(names)} "
+        f"distinct names; kernel names "
+        f"{ {k: v[:2] for k, v in kernels.items()} }")
+    if not all(kernels.values()):
+        raise SystemExit("the trace names no composite_fwd/composite_bwd "
+                         "kernel")
+    for phase in ("motion_filter", "frontend", "mapping"):
+        if phase not in names:
+            raise SystemExit(f"the trace does not name phase {phase}")
+    frames = learned_res["frames"]
+    if [f[0] for f in frames] != list(range(learned_res["n_frames"])):
+        raise SystemExit("on_frame was not called once per frame on the "
+                         "learned path")
+    log(f"trace phase: on_frame called once per frame on the learned path "
+        f"({len(frames)} calls, keyframe index "
+        f"{frames[0][2]} -> {frames[-1][2]})")
+
+
+def tools_phase(dev):
+    """Phase 17: the flow probe and the admission calibration on the shipped
+    checkpoint at 240x320, and the ate_matrix `base` arm. Gate: the card's
+    gap-1 EPE within 1e-3 relative of a CPU float32 run of the probe."""
+    import torch
+    from splatslam_tpu_torch.datasets import Synthetic
+    from splatslam_tpu_torch.tools import admission_calib as AC
+    from splatslam_tpu_torch.tools import ate_matrix as AM
+    from splatslam_tpu_torch.tools import flow_probe as FP
+    ds = Synthetic(FP.scene_cfg())
+    t0 = time.perf_counter()
+    model = FP.load_model(LEARNED_WEIGHTS, dev)
+    probe = {}
+    for gap in FP.GAPS:
+        probe.update(FP.probe(model, ds, gaps=(gap,)))
+        log("flow_probe: " + FP.format_line(gap, *probe[gap]))
+    t_probe = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = FP.probe(FP.load_model(LEARNED_WEIGHTS, "cpu"), ds, gaps=(1,))[1]
+    t_cpu = time.perf_counter() - t0
+    rel = abs(probe[1][1] - cpu[1]) / abs(cpu[1])
+    log(f"flow_probe: gap 1 EPE card {probe[1][1]:.6f} vs CPU float32 "
+        f"{cpu[1]:.6f} px, rel {rel:.2e} (tol 1e-3); probe {t_probe:.1f} s "
+        f"on the card, gap 1 {t_cpu:.1f} s on the CPU")
+    if not rel <= 1e-3:
+        raise SystemExit("flow probe: card and CPU EPE disagree")
+    t0 = time.perf_counter()
+    m = AC.load_model(LEARNED_WEIGHTS, dev)
+    frames = AC.scene_frames(ds, dev)
+    for th in AC.THRESHES:
+        adm, deltas = AC.admission(m, frames, th)
+        log("admission_calib: " + AC.format_line(th, adm, deltas,
+                                                 len(frames)))
+    log(f"admission_calib ({m.dtype}): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rmse, n_kf = AM.run_arm("base", AM.ARMS["base"], device=dev,
+                            out=os.path.join(HERE, "chiprun_out",
+                                             "ate_matrix"))
+    log(f"ate_matrix: arm base {time.perf_counter() - t0:.1f} s")
+    vals = [v for p in probe.values() for v in p] + [rmse]
+    if not all(math.isfinite(v) for v in vals) or n_kf < 2:
+        raise SystemExit(f"a tool gave a non-finite number: {vals}")
+    torch.cuda.empty_cache()
+
+
 def main(argv=None):
     import argparse
     import torch
@@ -1200,6 +1723,12 @@ def main(argv=None):
                     "phases and the recorded-sequence path")
     ap.add_argument("--train-only", action="store_true",
                     help="only the build and the trainer phase")
+    ap.add_argument("--last-only", action="store_true",
+                    help="only the build and phases 14-17 (multi-device "
+                    "mapping, loop closure, trace and hook, tools)")
+    ap.add_argument("--multidevice-only", action="store_true",
+                    help="only the build, the replica_scale path and phase "
+                    "14 (over distinct cards where several are visible)")
     ap.add_argument("--time-flags", default=None,
                     help="extra nvcc flags (space-separated; several sets "
                     "separated by '|', an empty set is the port's own "
@@ -1243,6 +1772,25 @@ def main(argv=None):
         check_pretrained()
         refuse_jax()
         return 0
+    if args.last_only:
+        _, slam = main_path(dev)
+        multidevice_phase(slam, dev)
+        del slam
+        torch.cuda.empty_cache()
+        _, learned, learned_res = learned_path(dev)
+        del learned
+        torch.cuda.empty_cache()
+        loop_phase(dev, learned_res)
+        trace_phase(dev, learned_res)
+        tools_phase(dev)
+        check_pretrained()
+        refuse_jax()
+        return 0
+    if args.multidevice_only:
+        _, slam = main_path(dev)
+        multidevice_phase(slam, dev)
+        refuse_jax()
+        return 0
     if args.learned_only:
         _, learned, _ = learned_path(dev)
         kernel_phase("learned final window", *window_input(learned))
@@ -1271,6 +1819,7 @@ def main(argv=None):
     counts, slam = main_path(dev)
     window = kernel_phase("final window", *window_input(slam))
     profile_phase(slam)
+    counts_multi, window_shard = multidevice_phase(slam, dev)
     del slam
     torch.cuda.empty_cache()
     counts_learned, learned, learned_res = learned_path(dev)
@@ -1287,6 +1836,9 @@ def main(argv=None):
     del prior
     torch.cuda.empty_cache()
     trainer_phase(dev)
+    loop_phase(dev, learned_res)
+    trace_phase(dev, learned_res)
+    tools_phase(dev)
     check_pretrained()
     src = "splatslam_tpu_torch/csrc/composite.cu"
     replaces = {"composite_fwd": "splatslam_tpu/ops/raster_pallas.py:333",
@@ -1298,14 +1850,17 @@ def main(argv=None):
             name=name, route="cuda", source=src, replaces=replaces[name],
             launches=counts[name], launches_learned=counts_learned[name],
             launches_prior=counts_prior[name],
-            launches_recorded=counts_recorded[name], **m,
+            launches_recorded=counts_recorded[name],
+            launches_multidevice=counts_multi[name], **m,
             one_camera={k: v for k, v in single[name].items()
                         if k != "library_ms"},
             window={k: v for k, v in w.items() if k != "library_ms"},
             learned_window={k: v for k, v in window_learned[name].items()
                             if k != "library_ms"},
             prior_window={k: v for k, v in window_prior[name].items()
-                          if k != "library_ms"}))
+                          if k != "library_ms"},
+            multidevice_shard={k: v for k, v in window_shard[name].items()
+                               if k != "library_ms"}))
     refuse_jax()
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -10,11 +10,20 @@ batched rasterize_batch call (the compositor is the CUDA kernel pair on
 the GPU), backpropagates once and steps Adam in place; `map_step_n` is the
 Python loop over iterations with the tile-binning cadence of the JAX
 map_step_n.
+
+With `mapping.mesh_devices: n` (and n devices visible) the camera rows of
+every segment are split over n devices, the counterpart of the JAX
+mapper's "cam" mesh in one process: each device bins, renders and
+differentiates its rows against its replica of the map, the gradients are
+summed onto the first device, and Adam steps the map there once.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import math
 import os
+import types
 
 import numpy as np
 import torch
@@ -57,11 +66,218 @@ def render_eval(st, w2cs, intrinsics, *, H, W, K, sh_degree, max_span):
 # the optimisation step
 # ---------------------------------------------------------------------------
 
+@dataclasses.dataclass
+class _Cams:
+    """One shard of a stacked camera batch, on its device: the rows'
+    tensors, their exposure (em, ev) and pose (tm, tv) Adam moments, the
+    intrinsics and, between rebins, their tile lists."""
+    w2cs: torch.Tensor
+    images: torch.Tensor
+    depths: torch.Tensor
+    exposure: torch.Tensor
+    use_exposure: torch.Tensor
+    cam_valid: torch.Tensor
+    opt_pose_mask: torch.Tensor
+    em: torch.Tensor
+    ev: torch.Tensor
+    tm: torch.Tensor
+    tv: torch.Tensor
+    intrinsics: torch.Tensor
+    tile_ids: torch.Tensor | None = None
+    tile_counts: torch.Tensor | None = None
+
+    ROWS = ("w2cs", "images", "depths", "exposure", "use_exposure",
+            "cam_valid", "opt_pose_mask", "em", "ev", "tm", "tv", "tile_ids",
+            "tile_counts")
+    STATE = ("w2cs", "exposure", "em", "ev", "tm", "tv")
+
+    def rows(self, r):
+        return dataclasses.replace(self, **{
+            f: getattr(self, f)[r] for f in self.ROWS
+            if getattr(self, f) is not None})
+
+    def write_rows(self, r, other):
+        for f in self.STATE:
+            getattr(self, f)[r] = getattr(other, f)
+
+
+def _shard_cams(devices, w2cs, images, depths, exposure, use_exposure,
+                cam_valid, opt_pose_mask, exp_state, tau_state, intrinsics,
+                tile_ids=None, tile_counts=None):
+    """[(shard index, _Cams)] for the non-empty shards: the camera rows
+    split by torch.tensor_split over `devices` (uneven shards allowed, no
+    padded rows), each copied to its device. One shard, without a copy, when
+    `devices` is None."""
+    full = _Cams(w2cs, images, depths, exposure, use_exposure, cam_valid,
+                 opt_pose_mask, exp_state[0], exp_state[1], tau_state[0],
+                 tau_state[1], intrinsics, tile_ids, tile_counts)
+    if devices is None:
+        return [(0, full)]
+    out = []
+    rows = torch.tensor_split(torch.arange(w2cs.shape[0]), len(devices))
+    for k, (dev, r) in enumerate(zip(devices, rows)):
+        if len(r):
+            part = full.rows(slice(int(r[0]), int(r[-1]) + 1))
+            out.append((k, dataclasses.replace(part, **{
+                f.name: getattr(part, f.name).to(dev, copy=True)
+                for f in dataclasses.fields(part)
+                if getattr(part, f.name) is not None})))
+    return out
+
+
+def _gather_cams(shards, device):
+    """The shards' camera state back in row order on `device`:
+    (exp_state, tau_state, w2cs, exposure)."""
+    if len(shards) == 1:
+        c = shards[0][1]
+        return (c.em, c.ev), (c.tm, c.tv), c.w2cs, c.exposure
+    cat = lambda f: torch.cat([getattr(c, f).to(device) for _, c in shards])
+    return ((cat("em"), cat("ev")), (cat("tm"), cat("tv")), cat("w2cs"),
+            cat("exposure"))
+
+
+def _replicas(st, devices):
+    """The map's replicas for shards 1..n-1: detached clones of its
+    parameters and alive mask, one per shard (a repeated device gets a copy
+    of its own too), refreshed from the map after each Adam step."""
+    if devices is None:
+        return []
+    names = G.PARAM_NAMES + ("alive",)
+    return [types.SimpleNamespace(**{
+        n: getattr(st, n).detach().to(dev, copy=True) for n in names})
+        for dev in devices[1:]]
+
+
+def _iso_loss(scal, alive, weight):
+    """The weighted isotropic-scale term."""
+    iso = (scal - scal.mean(-1, keepdim=True)).abs()
+    iso = torch.where(alive[:, None], iso, torch.zeros_like(iso))
+    return weight * iso.sum() / torch.clamp(3 * alive.sum(), min=1)
+
+
+def _step_shards(st, reps, shards, lrs, cam_lrs, step, iso_weight, *, H, W,
+                 K, use_ssim, alpha, opt_poses, sh_degree, want_touched,
+                 max_span):
+    """One mapping iteration over camera shards. Each shard renders its
+    rows from its replica of the map (shard 0 from the map itself) and
+    differentiates its own loss on its device; the isotropic term is added
+    once, on the first device. Gradients are summed onto the map's device,
+    the densification statistics are combined there (sums, a max, radii
+    and n_touched in row order), Adam steps the map once and the replicas
+    are refreshed. Each shard's exposure and pose Adam rows are updated on
+    its device, in place in its _Cams. Returns (radii (B,C), n_touched
+    (B,C), loss) on the map's device."""
+    dev0, C = st.device, st.capacity
+    t = float(step)
+    g_sum, loss, radii_l, nt_l = None, None, [], []
+    vis_sum = gnorm_sum = max_r = None
+    if not any(k == 0 for k, _ in shards):
+        # the isotropic term rides with shard 0; here it has no rows
+        s = st.scaling.detach().requires_grad_(True)
+        iso = _iso_loss(torch.exp(s), st.alive, iso_weight)
+        g_sum = {n: torch.zeros_like(getattr(st, n)) for n in G.PARAM_NAMES}
+        g_sum["scaling"] = torch.autograd.grad(iso, s)[0]
+        loss = iso.detach()
+    for k, c in shards:
+        src = st if k == 0 else reps[k - 1]
+        dev = src.xyz.device
+        B = c.w2cs.shape[0]
+        params = {n: getattr(src, n).detach().requires_grad_(True)
+                  for n in G.PARAM_NAMES}
+        exposure = c.exposure.detach().requires_grad_(True)
+        taus = torch.zeros((B, 6), device=dev, requires_grad=opt_poses)
+        dummy = torch.zeros((B, C, 2), device=dev, requires_grad=True)
+
+        opac = torch.sigmoid(params["opacity"])[:, 0]
+        scal = torch.exp(params["scaling"])
+        cols = _colors(params["f_dc"], params["f_rest"], params["xyz"],
+                       c.w2cs, sh_degree)
+        out = rz.rasterize_batch(
+            params["xyz"], scal, params["rotation"], opac, cols, src.alive,
+            c.w2cs, taus, c.intrinsics, torch.zeros(3, device=dev),
+            means2d_dummy=dummy, tile_ids=c.tile_ids,
+            tile_counts=c.tile_counts, H=H, W=W, K=K,
+            want_touched=want_touched, max_span=max_span)
+        ue = c.use_exposure[:, None, None, None]
+        image_ab = torch.where(
+            ue, torch.exp(exposure[:, 0, None, None, None]) * out.color
+            + exposure[:, 1, None, None, None], out.color)
+        per_cam = mapping_loss(image_ab, out.depth, c.images, c.depths,
+                               alpha=alpha, use_ssim=use_ssim)
+        total = torch.where(c.cam_valid, per_cam,
+                            torch.zeros_like(per_cam)).sum()
+        if k == 0:
+            total = total + _iso_loss(scal, src.alive, iso_weight)
+
+        leaves = [params[n] for n in G.PARAM_NAMES] + [exposure, dummy]
+        if opt_poses:
+            leaves.append(taus)
+        grads = torch.autograd.grad(total, leaves, allow_unused=True)
+        grads = [torch.zeros_like(x) if g is None else g
+                 for x, g in zip(leaves, grads)]
+        g_expo, g_dummy = grads[len(G.PARAM_NAMES):len(G.PARAM_NAMES) + 2]
+
+        with torch.no_grad():
+            g_p = dict(zip(G.PARAM_NAMES, grads[:len(G.PARAM_NAMES)]))
+            if g_sum is None:
+                g_sum = g_p
+            else:
+                g_sum = {n: g_sum[n] + g_p[n].to(dev0) for n in g_sum}
+            loss = total.detach().to(dev0) if loss is None \
+                else loss + total.detach().to(dev0)
+            radii = out.radii * c.cam_valid[:, None]
+            radii_l.append(radii.to(dev0))
+            nt_l.append((out.n_touched * c.cam_valid[:, None]).to(dev0))
+            # densification statistics: screen-space gradient norms over
+            # the cameras that see each Gaussian (mapper.py:522-529)
+            vis_any = radii > 0
+            gn = (torch.linalg.norm(g_dummy, dim=-1) * vis_any).sum(0)
+            vs = vis_any.sum(0).float()
+            mr = (radii * vis_any).max(0).values
+            gnorm_sum = gn.to(dev0) if gnorm_sum is None \
+                else gnorm_sum + gn.to(dev0)
+            vis_sum = vs.to(dev0) if vis_sum is None \
+                else vis_sum + vs.to(dev0)
+            max_r = mr.to(dev0) if max_r is None \
+                else torch.maximum(max_r, mr.to(dev0))
+
+            ge = g_expo * (c.use_exposure & c.cam_valid)[:, None]
+            c.em = 0.9 * c.em + 0.1 * ge
+            c.ev = 0.999 * c.ev + 0.001 * ge * ge
+            c.exposure = exposure.detach() - 0.01 * (
+                c.em / (1 - 0.9 ** t)) / (
+                torch.sqrt(c.ev / (1 - 0.999 ** t)) + 1e-8)
+            if opt_poses:
+                pm = (c.opt_pose_mask & c.cam_valid)[:, None]
+                gt_ = grads[-1] * pm
+                c.tm = 0.9 * c.tm + 0.1 * gt_
+                c.tv = 0.999 * c.tv + 0.001 * gt_ * gt_
+                lr_vec = torch.tensor([cam_lrs[0]] * 3 + [cam_lrs[1]] * 3,
+                                      device=dev)
+                upd = lr_vec * (c.tm / (1 - 0.9 ** t)) / (
+                    torch.sqrt(c.tv / (1 - 0.999 ** t)) + 1e-8)
+                new_tau = torch.where(pm, -upd, torch.zeros_like(upd))
+                dT = lie.to_matrix(lie.exp(new_tau))
+                c.w2cs = torch.where(pm[:, :, None], dT @ c.w2cs, c.w2cs)
+
+    with torch.no_grad():
+        st.grad_accum += gnorm_sum
+        st.denom += vis_sum
+        st.max_radii2D = torch.maximum(st.max_radii2D, max_r)
+        G.adam_step(st, g_sum, lrs, step)
+        for rep in reps:
+            for n in G.PARAM_NAMES:
+                getattr(rep, n).copy_(getattr(st, n), non_blocking=True)
+    cat = lambda xs: xs[0] if len(xs) == 1 else torch.cat(xs)
+    return cat(radii_l), cat(nt_l), loss
+
+
 def map_step(st: G.GaussianState, exp_state, tau_state, w2cs, images,
              depths, exposure, use_exposure, cam_valid, opt_pose_mask,
              intrinsics, lrs, cam_lrs, step, iso_weight, tile_ids=None,
              tile_counts=None, *, H, W, K, use_ssim, alpha,
-             opt_poses=False, sh_degree=0, want_touched=True, max_span=4):
+             opt_poses=False, sh_degree=0, want_touched=True, max_span=4,
+             devices=None):
     """One mapping iteration over a stacked camera batch.
 
     st is updated IN PLACE (Adam) and returned; exp_state/tau_state are
@@ -70,90 +286,29 @@ def map_step(st: G.GaussianState, exp_state, tau_state, w2cs, images,
     (B,) bool; lrs per-group learning rates; cam_lrs (lr_trans, lr_rot);
     step the 1-based Adam step; iso_weight the isotropic-scale weight.
     Poses render at tau = 0 and, with opt_poses, are retracted by the
-    Adam step's tau (monogs update_pose).
+    Adam step's tau (monogs update_pose). devices: a list of devices, the
+    first the map's, to split the camera rows over (the map replicated,
+    gradients summed onto the first device); None renders them all on the
+    map's device.
 
     Returns (st, exp_state, tau_state, w2cs, exposure, radii (B,C),
     n_touched (B,C), loss)."""
-    B, C = w2cs.shape[0], st.capacity
-    dev = st.device
-    params = {n: getattr(st, n).detach().requires_grad_(True)
-              for n in G.PARAM_NAMES}
-    exposure = exposure.detach().requires_grad_(True)
-    taus = torch.zeros((B, 6), device=dev, requires_grad=opt_poses)
-    dummy = torch.zeros((B, C, 2), device=dev, requires_grad=True)
-
-    opac = torch.sigmoid(params["opacity"])[:, 0]
-    scal = torch.exp(params["scaling"])
-    cols = _colors(params["f_dc"], params["f_rest"], params["xyz"], w2cs,
-                   sh_degree)
-    out = rz.rasterize_batch(
-        params["xyz"], scal, params["rotation"], opac, cols, st.alive, w2cs,
-        taus, intrinsics, torch.zeros(3, device=dev), means2d_dummy=dummy,
-        tile_ids=tile_ids, tile_counts=tile_counts, H=H, W=W, K=K,
-        want_touched=want_touched, max_span=max_span)
-    ue = use_exposure[:, None, None, None]
-    image_ab = torch.where(
-        ue, torch.exp(exposure[:, 0, None, None, None]) * out.color
-        + exposure[:, 1, None, None, None], out.color)
-    per_cam = mapping_loss(image_ab, out.depth, images, depths, alpha=alpha,
-                           use_ssim=use_ssim)
-    total = torch.where(cam_valid, per_cam, torch.zeros_like(per_cam)).sum()
-    iso = (scal - scal.mean(-1, keepdim=True)).abs()
-    iso = torch.where(st.alive[:, None], iso, torch.zeros_like(iso))
-    total = total + iso_weight * iso.sum() / torch.clamp(
-        3 * st.alive.sum(), min=1)
-
-    leaves = [params[n] for n in G.PARAM_NAMES] + [exposure, dummy]
-    if opt_poses:
-        leaves.append(taus)
-    grads = torch.autograd.grad(total, leaves, allow_unused=True)
-    grads = [torch.zeros_like(x) if g is None else g
-             for x, g in zip(leaves, grads)]
-    g_params = dict(zip(G.PARAM_NAMES, grads[:len(G.PARAM_NAMES)]))
-    g_expo, g_dummy = grads[len(G.PARAM_NAMES):len(G.PARAM_NAMES) + 2]
-
-    with torch.no_grad():
-        radii = out.radii * cam_valid[:, None]
-        n_touched = out.n_touched * cam_valid[:, None]
-        # densification statistics: screen-space gradient norms over the
-        # cameras that see each Gaussian (mapper.py:522-529)
-        vis_any = radii > 0
-        gnorm = torch.linalg.norm(g_dummy, dim=-1)
-        st.grad_accum += (gnorm * vis_any).sum(0)
-        st.denom += vis_any.sum(0).float()
-        st.max_radii2D = torch.maximum(st.max_radii2D,
-                                       (radii * vis_any).max(0).values)
-        G.adam_step(st, g_params, lrs, step)
-
-        t = float(step)
-        m, v = exp_state
-        ge = g_expo * (use_exposure & cam_valid)[:, None]
-        m = 0.9 * m + 0.1 * ge
-        v = 0.999 * v + 0.001 * ge * ge
-        exposure = exposure.detach() - 0.01 * (m / (1 - 0.9 ** t)) / (
-            torch.sqrt(v / (1 - 0.999 ** t)) + 1e-8)
-
-        if opt_poses:
-            pm = (opt_pose_mask & cam_valid)[:, None]
-            tm, tv = tau_state
-            gt_ = grads[-1] * pm
-            tm = 0.9 * tm + 0.1 * gt_
-            tv = 0.999 * tv + 0.001 * gt_ * gt_
-            lr_vec = torch.tensor([cam_lrs[0]] * 3 + [cam_lrs[1]] * 3,
-                                  device=dev)
-            upd = lr_vec * (tm / (1 - 0.9 ** t)) / (
-                torch.sqrt(tv / (1 - 0.999 ** t)) + 1e-8)
-            new_tau = torch.where(pm, -upd, torch.zeros_like(upd))
-            dT = lie.to_matrix(lie.exp(new_tau))
-            w2cs = torch.where(pm[:, :, None], dT @ w2cs, w2cs)
-            tau_state = (tm, tv)
-    return (st, (m, v), tau_state, w2cs, exposure, radii, n_touched,
-            total.detach())
+    shards = _shard_cams(devices, w2cs, images, depths, exposure,
+                         use_exposure, cam_valid, opt_pose_mask, exp_state,
+                         tau_state, intrinsics, tile_ids, tile_counts)
+    radii, n_touched, loss = _step_shards(
+        st, _replicas(st, devices), shards, lrs, cam_lrs, step, iso_weight,
+        H=H, W=W, K=K, use_ssim=use_ssim, alpha=alpha, opt_poses=opt_poses,
+        sh_degree=sh_degree, want_touched=want_touched, max_span=max_span)
+    exp_state, tau_state, w2cs, exposure = _gather_cams(shards, st.device)
+    return (st, exp_state, tau_state, w2cs, exposure, radii, n_touched,
+            loss)
 
 
 def _rebin(st, w2cs, intrinsics, *, H, W, K, margin, rebin_every, max_span):
     """Tile lists reused for several iterations: with a margin, binned at
-    the opacity a reset-free logit could reach by the next rebin."""
+    the opacity a reset-free logit could reach by the next rebin. `st` is
+    the map or one of its replicas."""
     logit = st.opacity[:, 0]
     if margin > 0:
         logit = logit + rebin_every * 0.05
@@ -168,7 +323,7 @@ def map_step_n(st, exp_state, tau_state, w2cs, images, depths, exposure,
                lr_scalars, cam_lrs, step0, n_iters, iso_weight, *, H, W, K,
                use_ssim, alpha, lr_sched=None, opt_poses=False, sh_degree=0,
                rebin_every=8, rebin_margin=4.0, max_span=4,
-               per_step_cams=False):
+               per_step_cams=False, devices=None):
     """`n_iters` mapping iterations (the JAX map_step_n schedule).
 
     Tile binning runs every `rebin_every` iterations with a
@@ -176,10 +331,17 @@ def map_step_n(st, exp_state, tau_state, w2cs, images, depths, exposure,
     skipped in the loop, and the last iteration bins afresh with
     want_touched=True. per_step_cams: iteration i trains on camera row i
     alone (final_refine's one-random-frame-per-step schedule), each step
-    binning its own camera exactly."""
+    binning its own camera exactly. devices: as in map_step; the rows are
+    split once for the whole segment, each shard bins its own cameras on
+    its device, and a per-step row trains where its shard lives."""
     kw = dict(H=H, W=W, K=K, use_ssim=use_ssim, alpha=alpha,
               opt_poses=opt_poses, sh_degree=sh_degree, max_span=max_span)
     bin_kw = dict(H=H, W=W, K=K, rebin_every=rebin_every, max_span=max_span)
+    shards = _shard_cams(devices, w2cs, images, depths, exposure,
+                         use_exposure, cam_valid, opt_pose_mask, exp_state,
+                         tau_state, intrinsics)
+    reps = _replicas(st, devices)
+    src = lambda k: st if k == 0 else reps[k - 1]
 
     def lrs_at(step):
         xyz = G.xyz_lr(step, *lr_sched) if lr_sched is not None \
@@ -187,57 +349,97 @@ def map_step_n(st, exp_state, tau_state, w2cs, images, depths, exposure,
         return dict(lr_scalars, xyz=xyz)
 
     if per_step_cams:
-        (em, ev), (tm, tv) = exp_state, tau_state
-        w2cs, exposure = w2cs.clone(), exposure.clone()
-        em, ev, tm, tv = em.clone(), ev.clone(), tm.clone(), tv.clone()
+        if devices is None:
+            # rows are written back in place: leave the caller's alone
+            c = shards[0][1]
+            for f in _Cams.STATE:
+                setattr(c, f, getattr(c, f).clone())
+        rows = [(k, c, i) for k, c in shards for i in range(len(c.w2cs))]
         for i in range(n_iters):
-            r = slice(i, i + 1)
-            tids, tcnt = _rebin(st, w2cs[r], intrinsics, margin=0.0,
-                                **bin_kw)
+            k, c, r = rows[i]
+            one = c.rows(slice(r, r + 1))
+            one.tile_ids, one.tile_counts = _rebin(
+                src(k), one.w2cs, one.intrinsics, margin=0.0, **bin_kw)
             step = step0 + i
-            (st, (em_i, ev_i), (tm_i, tv_i), w2c_o, exp_o, radii, n_touched,
-             loss) = map_step(
-                st, (em[r], ev[r]), (tm[r], tv[r]), w2cs[r], images[r],
-                depths[r], exposure[r], use_exposure[r], cam_valid[r],
-                opt_pose_mask[r], intrinsics, lrs_at(step), cam_lrs,
-                step + 1, iso_weight, tids, tcnt,
-                want_touched=(i == n_iters - 1), **kw)
-            em[r], ev[r], tm[r], tv[r] = em_i, ev_i, tm_i, tv_i
-            w2cs[r], exposure[r] = w2c_o, exp_o
-        return (st, (em, ev), (tm, tv), w2cs, exposure, radii, n_touched,
-                loss)
-
-    tids = tcnt = None
-    for i in range(n_iters - 1):
-        if i % rebin_every == 0:
-            tids, tcnt = _rebin(st, w2cs, intrinsics, margin=rebin_margin,
-                                **bin_kw)
-        step = step0 + i
-        (st, exp_state, tau_state, w2cs, exposure, _, _, _) = map_step(
-            st, exp_state, tau_state, w2cs, images, depths, exposure,
-            use_exposure, cam_valid, opt_pose_mask, intrinsics,
-            lrs_at(step), cam_lrs, step + 1, iso_weight, tids, tcnt,
-            want_touched=False, **kw)
-    step = step0 + n_iters - 1
-    return map_step(st, exp_state, tau_state, w2cs, images, depths,
-                    exposure, use_exposure, cam_valid, opt_pose_mask,
-                    intrinsics, lrs_at(step), cam_lrs, step + 1, iso_weight,
-                    want_touched=True, **kw)
+            radii, n_touched, loss = _step_shards(
+                st, reps, [(k, one)], lrs_at(step), cam_lrs, step + 1,
+                iso_weight, want_touched=(i == n_iters - 1), **kw)
+            c.write_rows(slice(r, r + 1), one)
+    else:
+        for i in range(n_iters - 1):
+            if i % rebin_every == 0:
+                for k, c in shards:
+                    c.tile_ids, c.tile_counts = _rebin(
+                        src(k), c.w2cs, c.intrinsics, margin=rebin_margin,
+                        **bin_kw)
+            step = step0 + i
+            _step_shards(st, reps, shards, lrs_at(step), cam_lrs, step + 1,
+                         iso_weight, want_touched=False, **kw)
+        for _, c in shards:
+            c.tile_ids = c.tile_counts = None
+        step = step0 + n_iters - 1
+        radii, n_touched, loss = _step_shards(
+            st, reps, shards, lrs_at(step), cam_lrs, step + 1, iso_weight,
+            want_touched=True, **kw)
+    exp_state, tau_state, w2cs, exposure = _gather_cams(shards, st.device)
+    return (st, exp_state, tau_state, w2cs, exposure, radii, n_touched,
+            loss)
 
 
 # ---------------------------------------------------------------------------
 # the mapper
 # ---------------------------------------------------------------------------
 
+def _indexed(device):
+    """`device` with its index: a CUDA device without one is the current."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def mesh_devices(n, device):
+    """The devices `mapping.mesh_devices: n` splits the camera rows over:
+    the run's device, then the other visible devices of its type in index
+    order. None (one device) when n <= 1, and, with JAX's message, when
+    fewer than n devices of that type are visible."""
+    if n <= 1:
+        return None
+    if device.type == "cuda":
+        first = _indexed(device).index
+        visible = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+        visible.sort(key=lambda d: d.index != first)
+    else:
+        visible = [device]
+    if len(visible) < n:
+        print(f"[mapper] mesh_devices={n} requested but only "
+              f"{len(visible)} devices visible — running single-chip")
+        return None
+    return visible[:n]
+
+
 class Mapper:
     def __init__(self, cfg, video, dataset, mono_loader=None, printer=None,
-                 device=None):
+                 device=None, devices=None):
+        """devices: the list of devices to split each optimisation
+        segment's camera rows over, the first the run's device, in place of
+        the one `mapping.mesh_devices` resolves to (a device may repeat)."""
         self.cfg = cfg
         self.video = video
         self.dataset = dataset
         self.mono_loader = mono_loader or (lambda idx: None)
         self.printer = printer
         self.device = resolve_device(device)
+        if devices is None:
+            devices = mesh_devices(
+                int(cfg["mapping"].get("mesh_devices", 0) or 0), self.device)
+        else:
+            devices = [torch.device(d) for d in devices]
+            if _indexed(devices[0]) != _indexed(self.device):
+                raise ValueError(f"devices[0] {devices[0]} is not the "
+                                 f"mapper's device {self.device}")
+        self.devices = devices if devices and len(devices) > 1 else None
 
         m = cfg["mapping"]
         tr = m["Training"]
@@ -468,7 +670,8 @@ class Mapper:
                 H=self.H, W=self.W, K=self.K, use_ssim=self.use_ssim,
                 alpha=self.alpha, lr_sched=lr_sched, opt_poses=opt_poses,
                 sh_degree=self.sh_degree, rebin_every=self.rebin_every,
-                max_span=self.max_span, per_step_cams=per_step)
+                max_span=self.max_span, per_step_cams=per_step,
+                devices=self.devices)
             self.iteration_count += seg
             done += seg
             last = (radii, n_touched, loss)
@@ -598,6 +801,10 @@ class Mapper:
         per_step = (B == 1)
         if per_step:
             S = 1 if S == 1 else _round_up(S, 4)
+            if self.devices is not None:
+                # JAX's mesh bucket (mapper.py:1133-1140): both packages
+                # draw the same schedule
+                S = _round_up(S, math.lcm(4, len(self.devices)))
         done = 0
         while done < iters:
             if per_step:

@@ -233,11 +233,13 @@ def composite_fwd(packets, tile_ids, counts, ntx: int,
                       device=packets.device)
     ntouch = torch.zeros((B, N), dtype=torch.int32, device=packets.device)
     lib = _load()
-    err = lib.composite_fwd(
-        packets.data_ptr(), tile_ids.data_ptr(), counts.data_ptr(),
-        out.data_ptr(), ntouch.data_ptr(), B, N, T, K, int(ntx),
-        int(bool(want_touched)), pixels_per_thread("composite_fwd", B * T),
-        torch.cuda.current_stream(packets.device).cuda_stream)
+    # the runtime launches on the calling thread's current device
+    with torch.cuda.device(packets.device):
+        err = lib.composite_fwd(
+            packets.data_ptr(), tile_ids.data_ptr(), counts.data_ptr(),
+            out.data_ptr(), ntouch.data_ptr(), B, N, T, K, int(ntx),
+            int(bool(want_touched)), pixels_per_thread("composite_fwd", B * T),
+            torch.cuda.current_stream(packets.device).cuda_stream)
     _raise_on(err, "composite_fwd")
     launches["composite_fwd"] += 1
     return out, ntouch
@@ -256,11 +258,12 @@ def composite_bwd(packets, tile_ids, counts, ntx: int, gout, fwdout):
     grad = torch.zeros((B, N, 10), dtype=torch.float32,
                        device=packets.device)
     lib = _load()
-    err = lib.composite_bwd(
-        packets.data_ptr(), tile_ids.data_ptr(), counts.data_ptr(),
-        gout.data_ptr(), fwdout.data_ptr(), grad.data_ptr(), B, N, T, K,
-        int(ntx), pixels_per_thread("composite_bwd", B * T),
-        torch.cuda.current_stream(packets.device).cuda_stream)
+    with torch.cuda.device(packets.device):
+        err = lib.composite_bwd(
+            packets.data_ptr(), tile_ids.data_ptr(), counts.data_ptr(),
+            gout.data_ptr(), fwdout.data_ptr(), grad.data_ptr(), B, N, T, K,
+            int(ntx), pixels_per_thread("composite_bwd", B * T),
+            torch.cuda.current_stream(packets.device).cuda_stream)
     _raise_on(err, "composite_bwd")
     launches["composite_bwd"] += 1
     return grad

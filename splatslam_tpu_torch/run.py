@@ -2,9 +2,12 @@
 
     python -m splatslam_tpu_torch.run configs/Synthetic/smoke_oracle.yaml
     python -m splatslam_tpu_torch.run <config> --device cpu
+    python -m splatslam_tpu_torch.run <config> --profile DIR
 
 Runs on the GPU unless `--device` names another device; with no GPU and
 no `--device` it raises. Prints the frame count, wall time and FPS.
+`--profile DIR` prints the per-phase timers and writes a torch.profiler
+trace of the main loop to DIR/trace.json.
 """
 
 from __future__ import annotations
@@ -25,8 +28,9 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default=None,
                         help="torch device (default: cuda)")
     parser.add_argument("--profile", type=str, default=None, metavar="DIR",
-                        help="print per-phase wall timers (DIR is kept for "
-                             "run.py compatibility)")
+                        help="print per-phase wall timers and write a "
+                             "profiler trace of the main loop to "
+                             "DIR/trace.json")
     args = parser.parse_args(argv)
 
     from . import resolve_device
@@ -43,7 +47,8 @@ def main(argv=None):
         cfg["only_tracking"] = True
         cfg.setdefault("mono_prior", {})["predict_online"] = True
     if args.profile:
-        cfg.setdefault("profiling", {})["timers"] = True
+        cfg.setdefault("profiling", {})["trace_dir"] = args.profile
+        cfg["profiling"]["timers"] = True
 
     out_dir = os.path.join(cfg["data"]["output"],
                            str(cfg.get("scene", "scene")))

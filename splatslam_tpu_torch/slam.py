@@ -9,8 +9,9 @@ DBA/DSPO bundle adjustment, loop closure, proxy-depth fusion and map
 deformation, the windowed 3DGS optimisation, the final BA and refine, and
 the kf-ATE, PSNR/SSIM, depth-L1, mesh and full-trajectory evaluations, on
 the procedural Synthetic scene or a Replica / ScanNet / TUM-RGBD tree, with
-any mono prior provider. The one configuration the port cannot run yet,
-mapping over several devices, raises NotImplementedError.
+any mono prior provider. With `mapping.mesh_devices` the mapper splits its
+camera rows over several devices (mapping/mapper.py); with
+`profiling.trace_dir` the main loop runs under a torch.profiler trace.
 """
 
 from __future__ import annotations
@@ -37,21 +38,13 @@ from .mapping.gaussians import save_ply
 from .utils.printer import Printer, FontColor
 from .utils.eval_traj import kf_traj_eval, full_traj_eval
 from .utils.eval_render import eval_rendering, eval_mesh
-from .utils.profiling import PhaseTimers
-
-
-def check_slice(cfg):
-    """Fail loudly on a configuration the port cannot run yet: camera
-    batches sharded over several devices (`mapping.mesh_devices` > 1)."""
-    n_mesh = int(cfg.get("mapping", {}).get("mesh_devices", 0) or 0)
-    if n_mesh > 1:
-        raise NotImplementedError(f"mapping.mesh_devices {n_mesh}: "
-                                  "multi-GPU mapping is not ported yet")
+from .utils.profiling import PhaseTimers, device_trace
 
 
 class SLAM:
-    def __init__(self, cfg, device=None, stream=None):
-        check_slice(cfg)
+    def __init__(self, cfg, device=None, stream=None, mapping_devices=None):
+        """mapping_devices: the mapper's device list (Mapper's `devices`)
+        in place of the one `mapping.mesh_devices` resolves to."""
         self.cfg = cfg
         self.device = resolve_device(device)
         if self.device.type == "cuda":
@@ -81,7 +74,7 @@ class SLAM:
         if not self.only_tracking:
             self.mapper = Mapper(cfg, self.video, self.stream,
                                  mono_loader=self._prior, printer=self.printer,
-                                 device=self.device)
+                                 device=self.device, devices=mapping_devices)
             self.mapper.save_dir = self.save_dir
         self.ba_freq = cfg["tracking"]["backend"]["ba_freq"]
         self.enable_online_ba = cfg["tracking"]["frontend"][
@@ -93,6 +86,7 @@ class SLAM:
             self.mapper.timers = self.timers
         self.frontend.timers = self.timers
         self.motion_filter.timers = self.timers
+        self.trace_dir = cfg.get("profiling", {}).get("trace_dir", None)
 
     def _prior(self, idx):
         """The mono prior of frame `idx`, timed as phase "mono" (it runs
@@ -100,9 +94,11 @@ class SLAM:
         with self.timers("mono"):
             return self.mono(int(idx))
 
-    def run(self):
+    def run(self, on_frame=None):
         """Main loop (tracker.py:47-92 + the mapper handshake). Returns the
-        results dict of terminate().
+        results dict of terminate(). on_frame(i, timestamp, kf_idx) is
+        called after each processed frame, with kf_idx the newest
+        keyframe's index (video.counter - 1).
 
         Frames come from a one-frame-lookahead prefetch thread: decoding or
         rendering a frame is host numpy and would otherwise run serially
@@ -137,7 +133,8 @@ class SLAM:
         threading.Thread(target=prefetch, args=(pre_q, stop),
                          daemon=True).start()
         try:
-            self._run_loop(pre_q, chunk)
+            with device_trace(self.trace_dir, self.device):
+                self._run_loop(pre_q, chunk, on_frame)
         finally:
             stop.set()
             while not pre_q.empty():     # unblock the producer
@@ -147,9 +144,9 @@ class SLAM:
                     break
         return self.terminate()
 
-    def _post_frame(self, timestamp):
-        """After a frame's admission decision: frontend, online BA and
-        mapping when a keyframe came in."""
+    def _post_frame(self, i, timestamp, on_frame):
+        """After frame i's admission decision: frontend, online BA and
+        mapping when a keyframe came in, then the caller's hook."""
         T = self.timers
         with T("frontend"):
             self.frontend()
@@ -170,8 +167,10 @@ class SLAM:
                     self.mapper.process_keyframe(int(timestamp), curr_kf_idx)
         self._prev_kf_idx = curr_kf_idx
         self.printer.update_pbar()
+        if on_frame is not None:
+            on_frame(i, timestamp, curr_kf_idx)
 
-    def _run_loop(self, pre_q, chunk):
+    def _run_loop(self, pre_q, chunk, on_frame):
         """Per frame until the first keyframe exists and in oracle mode;
         else in chunks of `chunk` frames whose admission is decided with
         one host pull (motion_filter.admission_scan). Keyframe appends stay
@@ -202,7 +201,7 @@ class SLAM:
                 with T("motion_filter"):
                     mf.track(timestamp, img_u8, intrinsic, gt_pose=gt_pose,
                              gt_depth=gt_depth)
-                self._post_frame(timestamp)
+                self._post_frame(idx, timestamp, on_frame)
                 i = idx + 1
                 continue
             with T("motion_filter"):
@@ -218,7 +217,7 @@ class SLAM:
                                               intrinsic, gt_pose=gt_pose)
                 else:
                     mf.count += 1
-                self._post_frame(timestamp)
+                self._post_frame(idx, timestamp, on_frame)
             i = items[-1][0] + 1
 
     def backend(self):

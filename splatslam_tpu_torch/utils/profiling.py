@@ -1,14 +1,17 @@
-"""Per-phase wall timers (counterpart of splatslam_tpu/utils/profiling.py).
+"""Per-phase wall timers and the profiler trace (counterpart of
+splatslam_tpu/utils/profiling.py).
 
 On a CUDA device every phase edge synchronises the device, so each
 phase's time is its own device work: PyTorch launches asynchronously and
 an unsynchronised host clock would charge queued kernels to whichever
-later phase happens to wait first.
+later phase happens to wait first. Each phase is also a
+`record_function` range, so a trace shows the phases by name.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 
 import torch
@@ -35,7 +38,8 @@ class PhaseTimers:
         self._sync()
         t0 = time.perf_counter()
         try:
-            yield
+            with torch.profiler.record_function(name):
+                yield
         finally:
             self._sync()
             self.add(name, time.perf_counter() - t0)
@@ -55,3 +59,26 @@ class PhaseTimers:
 
     def as_dict(self) -> dict:
         return {k: round(v, 4) for k, v in self.total.items()}
+
+
+TRACE_FILE = "trace.json"
+
+
+@contextlib.contextmanager
+def device_trace(trace_dir: str | None, device=None):
+    """torch.profiler over a region when trace_dir is set: CPU activity,
+    and CUDA activity when `device` is a CUDA device. On exit the whole
+    trace, unsampled, is written to `trace_dir/trace.json` (Chrome trace
+    format: chrome://tracing or ui.perfetto.dev). Nothing when trace_dir is
+    unset."""
+    if not trace_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if device is not None and torch.device(device).type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        yield
+    os.makedirs(trace_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(trace_dir, TRACE_FILE))

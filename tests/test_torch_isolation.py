@@ -43,34 +43,54 @@ def test_run_without_device_raises_when_no_gpu(monkeypatch):
         run.main([os.path.join(REPO, "configs/Synthetic/smoke_oracle.yaml")])
 
 
+class _Data:
+    def get_intrinsic(self):
+        import numpy as np
+        return np.asarray([40.0, 40.0, 32.0, 24.0], np.float32)
+
+
+def _accept(cfg):
+    """What SLAM builds from a config before it reads a frame, on the CPU:
+    the video and the mapper, which resolves `mapping.mesh_devices`.
+    Returns the mapper."""
+    from splatslam_tpu_torch.mapping.mapper import Mapper
+    from splatslam_tpu_torch.tracking.depth_video import DepthVideo
+    return Mapper(cfg, DepthVideo(cfg, device="cpu"), _Data(), device="cpu")
+
+
 def test_learned_smoke_config_is_inside_the_slice(monkeypatch):
-    """check_slice takes the system's own main path, learned tracking."""
+    """The port takes the system's own main path, learned tracking."""
     monkeypatch.chdir(REPO)
     from splatslam_tpu_torch.config import load_config
-    from splatslam_tpu_torch.slam import check_slice
     cfg = load_config(os.path.join(REPO, "configs/Synthetic/smoke.yaml"),
                       os.path.join(REPO, "configs/splat_slam.yaml"))
     assert not cfg["tracking"].get("oracle", False)
-    check_slice(cfg)
+    assert _accept(cfg).devices is None
 
 
 @pytest.mark.parametrize("edit,match", [
-    (("mapping", "mesh_devices", 2), "multi-GPU mapping is not ported yet"),
-    (("mapping", "mesh_devices", 4), "multi-GPU mapping is not ported yet"),
+    (("mapping", "mesh_devices", 2),
+     "[mapper] mesh_devices=2 requested but only 1 devices visible — "
+     "running single-chip"),
+    (("mapping", "mesh_devices", 4),
+     "[mapper] mesh_devices=4 requested but only 1 devices visible — "
+     "running single-chip"),
 ])
-def test_configs_outside_the_slice_fail_loudly(edit, match, monkeypatch):
+def test_configs_outside_the_slice_fail_loudly(edit, match, monkeypatch,
+                                               capsys):
+    """Camera-parallel mapping is accepted; with fewer devices visible than
+    asked (one CPU here) the mapper says so, as the JAX mapper does, and
+    runs on one device."""
     monkeypatch.chdir(REPO)
     from splatslam_tpu_torch.config import load_config
-    from splatslam_tpu_torch.slam import check_slice
     cfg = load_config(os.path.join(REPO, "configs/Synthetic/smoke_oracle.yaml"),
                       os.path.join(REPO, "configs/splat_slam.yaml"))
     sec, key, val = edit
-    if key is None:
-        cfg[sec] = val
-    else:
-        cfg[sec][key] = val
-    with pytest.raises(NotImplementedError, match=match):
-        check_slice(cfg)
+    cfg[sec][key] = val
+    capsys.readouterr()
+    mapper = _accept(cfg)
+    assert match in capsys.readouterr().out
+    assert mapper.devices is None
 
 
 @pytest.mark.parametrize("edit", [
@@ -81,7 +101,8 @@ def test_configs_outside_the_slice_fail_loudly(edit, match, monkeypatch):
 def test_recorded_sequence_configs_are_inside_the_slice(edit, monkeypatch):
     monkeypatch.chdir(REPO)
     from splatslam_tpu_torch.config import load_config
-    from splatslam_tpu_torch.slam import check_slice
+    from splatslam_tpu_torch.datasets import dataset_dict
+    from splatslam_tpu_torch.mono_prior import PROVIDERS
     cfg = load_config(os.path.join(REPO, "configs/Synthetic/smoke_oracle.yaml"),
                       os.path.join(REPO, "configs/splat_slam.yaml"))
     sec, key, val = edit
@@ -89,7 +110,9 @@ def test_recorded_sequence_configs_are_inside_the_slice(edit, monkeypatch):
         cfg[sec] = val
     else:
         cfg[sec][key] = val
-    check_slice(cfg)
+    assert cfg["dataset"] in dataset_dict
+    assert cfg["mono_prior"]["provider"] in PROVIDERS
+    assert _accept(cfg).devices is None
 
 
 def test_every_config_in_the_repository_is_inside_the_slice(monkeypatch):
@@ -98,14 +121,13 @@ def test_every_config_in_the_repository_is_inside_the_slice(monkeypatch):
     from splatslam_tpu_torch.config import load_config
     from splatslam_tpu_torch.datasets import dataset_dict
     from splatslam_tpu_torch.mono_prior import PROVIDERS
-    from splatslam_tpu_torch.slam import check_slice
     paths = [p for p in glob.glob(os.path.join(REPO, "configs/*/*.yaml"))]
     assert len(paths) >= 10
     for p in paths:
         cfg = load_config(p, os.path.join(REPO, "configs/splat_slam.yaml"))
         if "dataset" not in cfg:      # a dataset's shared base file
             continue
-        check_slice(cfg)
+        _accept(cfg)
         assert cfg["dataset"] in dataset_dict, p
         assert cfg["mono_prior"]["provider"] in PROVIDERS, p
 

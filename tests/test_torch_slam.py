@@ -5,7 +5,10 @@ iterations), once with oracle tracking and once, at 96×136, with the
 learned tracker (the in-repo checkpoint, both networks in float32) and the
 full-trajectory evaluation.
 
-Tracking is deterministic, so the admitted keyframes must match exactly,
+Both runs record SLAM.run's on_frame hook: the same (frame index,
+timestamp, newest keyframe index) after every frame, per frame (oracle) and
+through the chunked admission (learned). Tracking is deterministic, so the
+admitted keyframes must match exactly,
 and kf-ATE within 1e-3 (learned: measured gap 1.6e-4; full-trajectory ATE
 within 3e-3, measured 7.9e-4 — 12 more network rounds per frame). The
 mapper's random draws (anchor subsampling, split noise) come from
@@ -56,10 +59,26 @@ def _cfg(out_dir, learned=False):
     return cfg
 
 
+def _hook(frames):
+    return lambda i, ts, kf: frames.append((int(i), float(ts), int(kf)))
+
+
+def _record_port_frames(monkeypatch):
+    """Every port SLAM.run in this test records its on_frame calls into the
+    returned list."""
+    from splatslam_tpu_torch.slam import SLAM
+    frames = []
+    run = SLAM.run
+    monkeypatch.setattr(SLAM, "run",
+                        lambda self: run(self, on_frame=_hook(frames)))
+    return frames
+
+
 def _run_jax(cfg):
     from splatslam_tpu.slam import SLAM
     slam = SLAM(cfg)
-    ate = slam.run()
+    frames = []
+    ate = slam.run(on_frame=_hook(frames))
     save = slam.save_dir
     with open(os.path.join(save, "rendering", "after_refine",
                            "final_result.json")) as f:
@@ -68,7 +87,7 @@ def _run_jax(cfg):
         proxy = float(f.readline().split(":")[1])
     out = dict(n_keyframes=slam.video.counter, ate_rmse=ate["rmse"],
                psnr=r["mean_psnr"], depth_l1=r["mean_depth_l1"],
-               proxy_depth_l1=proxy,
+               proxy_depth_l1=proxy, frames=frames,
                kf_stamps=np.asarray(slam.video.state.timestamp[
                    :slam.video.counter]).tolist())
     full = os.path.join(save, "traj", "metrics_full_traj.txt")
@@ -86,9 +105,12 @@ def test_oracle_slam_matches_jax(tmp_path, monkeypatch):
     path = tmp_path / "tiny.yaml"
     with open(path, "w") as f:
         yaml.dump(cfg_t, f)
+    frames = _record_port_frames(monkeypatch)
     got = run.main([str(path), "--device", "cpu"])
     want = _run_jax(_cfg(tmp_path / "jax"))
     print("port", {k: got[k] for k in want if k in got}, "jax", want)
+    assert frames == want["frames"]
+    assert [f[0] for f in frames] == list(range(12))
     assert got["n_keyframes"] == want["n_keyframes"] >= 5
     assert abs(got["ate_rmse"] - want["ate_rmse"]) <= 1e-3
     assert np.isfinite(got["psnr"]) and abs(got["psnr"] - want["psnr"]) <= 1.5
@@ -109,8 +131,11 @@ def test_learned_slam_matches_jax(tmp_path, monkeypatch):
     path = tmp_path / "tiny.yaml"
     with open(path, "w") as f:
         yaml.dump(cfg_t, f)
+    frames = _record_port_frames(monkeypatch)
     got = run.main([str(path), "--device", "cpu"])
     want = _run_jax(_cfg(tmp_path / "jax", learned=True))
+    assert frames == want["frames"]
+    assert [f[0] for f in frames] == list(range(12))
     keys = ("n_keyframes", "ate_rmse", "full_ate_rmse", "psnr", "depth_l1",
             "proxy_depth_l1")
     print("port", {k: got[k] for k in keys}, "jax", {k: want[k] for k in keys})

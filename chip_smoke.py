@@ -8,6 +8,7 @@
     python3 chip_smoke.py --last-only      # phases 1-2 and 14-17 only
     python3 chip_smoke.py --multidevice-only  # phases 1-2 and 14 only (on
         # a machine with several cards, phase 14 also splits over them)
+    python3 chip_smoke.py --profilers-only # phases 1-2 and 18 only
     python3 chip_smoke.py --kernels-only "--time-flags= |-fmad=true"
         # also time the kernels built with other nvcc flags (here: the
         # port's own and -fmad=true) and report how far their results move
@@ -135,7 +136,25 @@ Phases, each unguarded (any failure exits non-zero):
      pretrained/droid_dba.msgpack at 240x320 and the ate_matrix `base`
      arm, every printed line; gate: the card's gap-1 EPE within 1e-3
      relative of a CPU float32 run;
- 18. the kernels JSON line, then the device JSON line last.
+ 18. profilers phase: the port's three per-layer profilers through their
+     entry points at the JAX tools' default shapes, on the card, each
+     printing its JSON line of per-layer milliseconds (CUDA events after
+     warm-up), with every launch count reset just before and read just
+     after: `kernel_bench`, `tracking_profile`, `map_step_profile` and
+     `map_step_profile --ssim --dense`; gates: every row finite and > 0,
+     both kernels launched; then B1/B2 against their plain versions on the
+     profiler's own cloud (12 cameras at 320x640, K 256), and on its dense
+     cloud (mean 1131 contributors a tile, 4x K, where the kernel's float
+     atomics and the plain version's index_add sum B2's gradients in other
+     orders and part of them nearly cancel: they differed by 1.5e-3 against
+     |grad| up to 8.4e3 in one run, 1.2e-3 in the next), where an output
+     outside the tolerances is refereed: held against a float64 run of the
+     plain version, the kernel's max error at most twice the float32 plain
+     version's plus the unchanged atol.
+     The main path (phase 4) and every SLAM path also print the run's
+     achieved-FLOP counters (`flops_tracking`, `flops_mapping`) and their
+     sum over the run's wall;
+ 19. the kernels JSON line, then the device JSON line last.
 
 The machine this script is written for has numpy, scipy, cv2 and PIL and no
 matplotlib: every path runs with `eval_plots` off (panels and trajectory
@@ -146,8 +165,8 @@ phase 12 needs cv2.
 13-17, `--train-only` phases 3-12 and 14-17, `--last-only` phases 3 and 5-13
 but runs phase 4 (the input of phase 14) and phase 7's learned path (whose
 hook and loop_ba calls phases 15 and 16 read) without their kernel checks,
-`--multidevice-only` runs phase 4 and phase 14 (none of them prints the
-kernels line).
+`--multidevice-only` runs phase 4 and phase 14, `--profilers-only` phase 18
+(none of them prints the kernels line).
 
 Exits non-zero without printing a result when no CUDA device is present,
 or when the port's package is not beside this script.
@@ -200,6 +219,16 @@ def refuse_jax():
 
 def card_line():
     return smi("name,power.limit")
+
+
+def flops_line(label, video, wall):
+    """The run's achieved-FLOP counters (host arithmetic of the JAX
+    package's FLOP model, DepthVideo's docstring) and their sum over the
+    run's wall."""
+    ft, fm = video.flops_tracking, video.flops_mapping
+    log(f"{label}: flops_tracking {ft:.6e} flops_mapping {fm:.6e} wall "
+        f"{wall:.3f} s achieved_tflops {(ft + fm) / wall / 1e12:.6f} "
+        f"(card: {card_line()})")
 
 
 def build_kernels():
@@ -354,9 +383,25 @@ def time_other_flags(flags, packets, tile_ids, counts, ntx, gout, out):
         f"atol 1e-4) {bool(torch.allclose(grad, ref, rtol=1e-3, atol=1e-4))}")
 
 
-def kernel_phase(label, packets, tile_ids, counts, ntx, time_flags=None):
+def refereed(name, got, plain, exact, atol):
+    """A kernel's output and its float32 plain version's against a float64
+    run of the plain version: the kernel may be off by at most twice what
+    the float32 plain version is, plus `atol`."""
+    e_k = (got.double() - exact).abs().max().item()
+    e_p = (plain.double() - exact).abs().max().item()
+    ok = e_k <= 2 * e_p + atol
+    log(f"{name} against a float64 run of the plain version: kernel "
+        f"max|err| {e_k:.3e}, float32 plain {e_p:.3e} (gate: kernel <= 2x "
+        f"plain + {atol:g}) {ok}")
+    return ok
+
+
+def kernel_phase(label, packets, tile_ids, counts, ntx, time_flags=None,
+                 referee=False):
     """B1/B2 on one input: held against their plain versions, then timed.
-    Returns the measurements by kernel name."""
+    With `referee`, an output outside the elementwise tolerances is held
+    against a float64 run of the plain version instead (refereed). Returns
+    the measurements by kernel name."""
     import torch
     from splatslam_tpu_torch.ops import raster_cuda, rasterizer as R
     dev = packets.device
@@ -381,7 +426,15 @@ def kernel_phase(label, packets, tile_ids, counts, ntx, time_flags=None):
     log(f"B1 vs plain: color/depth max|err| {err_cd:.3e} (tol 1e-5), alpha "
         f"max|err| {err_a:.3e} (tol 1e-4), n_touched equal {nt_eq}; without "
         f"n_touched: same image and zero counts {no_touch_ok}")
-    if not (err_cd <= 1e-5 and err_a <= 1e-4 and nt_eq and no_touch_ok):
+    ok_1 = err_cd <= 1e-5 and err_a <= 1e-4
+    if not ok_1 and referee:
+        out64, _ = R.composite_fwd_torch(packets.double(), tile_ids, counts,
+                                         ntx, want_touched=False)
+        ok_1 = all([refereed("B1 colour/depth", out_k[:, :, :4],
+                             out_p[:, :, :4], out64[:, :, :4], 1e-5),
+                    refereed("B1 alpha", out_k[:, :, 4], out_p[:, :, 4],
+                             out64[:, :, 4], 1e-4)])
+    if not (ok_1 and nt_eq and no_touch_ok):
         raise SystemExit(f"B1 disagrees with its plain version ({label})")
 
     g = torch.Generator(device=dev).manual_seed(1)
@@ -394,6 +447,10 @@ def kernel_phase(label, packets, tile_ids, counts, ntx, time_flags=None):
     ok_g = bool(torch.allclose(gr_k, gr_p, rtol=1e-3, atol=1e-4))
     log(f"B2 vs plain: grad max|err| {err_g:.3e} max|grad| "
         f"{gr_p.abs().max().item():.3e} allclose(rtol 1e-3, atol 1e-4) {ok_g}")
+    if not ok_g and referee:
+        ok_g = refereed("B2", gr_k, gr_p, R.composite_bwd_torch(
+            packets.double(), tile_ids, counts, ntx, gout.double(),
+            out_k.double()), 1e-4)
     if not ok_g:
         raise SystemExit(f"B2 disagrees with its plain version ({label})")
 
@@ -503,6 +560,7 @@ def main_path(dev):
     log(f"main path: frames {res['n_frames']} keyframes {res['n_keyframes']} "
         f"mapped {len(slam.mapper.viewpoints)} wall {wall:.1f} s fps "
         f"{res['n_frames'] / wall:.3f}")
+    flops_line("main path", slam.video, wall)
     log("phase timers (s): " + json.dumps(res["timers"]))
     log(f"kf-ATE {res['ate_rmse']} PSNR {res['psnr']} SSIM {res['ssim']} "
         f"depth-L1 {res['depth_l1']} proxy depth-L1 {res['proxy_depth_l1']}")
@@ -666,6 +724,7 @@ def run_slam(label, cfg, dev):
         f"keyframes {res['n_keyframes']} mapped "
         f"{len(slam.mapper.viewpoints)} wall {wall:.1f} s fps "
         f"{res['n_frames'] / wall:.3f}")
+    flops_line(label, slam.video, wall)
     log(f"{label} phase timers (s): " + json.dumps(res["timers"]))
     log(f"{label}: kf-ATE {res['ate_rmse']} full ATE {res['full_ate_rmse']} "
         f"PSNR {res['psnr']} SSIM {res['ssim']} depth-L1 {res['depth_l1']} "
@@ -1709,6 +1768,67 @@ def tools_phase(dev):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the per-layer profilers
+# ---------------------------------------------------------------------------
+
+PROFILER_RUNS = (
+    ("kernel_bench", []),
+    ("tracking_profile", []),
+    ("map_step_profile", []),
+    ("map_step_profile", ["--ssim", "--dense"]),
+)
+
+
+def profilers_phase(dev):
+    """Phase 18: the three profilers at the JAX tools' default shapes
+    through their entry points, launch counts reset just before and read
+    just after; then B1/B2 on the profiler's own cloud against their plain
+    versions. Returns (launch counts, {cloud: kernel-phase measurements})."""
+    import importlib
+    import torch
+    from splatslam_tpu_torch.ops import raster_cuda, rasterizer as R
+    log("profilers phase, card: " + card_line())
+    raster_cuda.reset_launch_counts()
+    for k in R.plain_calls:
+        R.plain_calls[k] = 0
+    t0 = time.perf_counter()
+    lines = []
+    for name, argv in PROFILER_RUNS:
+        mod = importlib.import_module(f"splatslam_tpu_torch.tools.{name}")
+        t1 = time.perf_counter()
+        out = mod.main(argv + ["--json", "--device", str(dev)])
+        log(f"{name} {' '.join(argv)}: {time.perf_counter() - t1:.1f} s")
+        lines.append((name, argv, out))
+    torch.cuda.synchronize()
+    counts = dict(raster_cuda.launches)
+    plain = dict(R.plain_calls)
+    log(f"launches on the profilers' path: {counts}; plain compositing calls "
+        f"{plain}; {time.perf_counter() - t0:.1f} s")
+    for name, argv, out in lines:
+        rows = {k: v for k, v in out.items() if k.endswith("_ms")}
+        bad = {k: v for k, v in rows.items()
+               if not (math.isfinite(v) and v > 0)}
+        if not rows or bad:
+            raise SystemExit(f"{name} {argv}: rows not finite and > 0: {bad}")
+    if min(counts.values()) <= 0:
+        raise SystemExit(f"a kernel never launched on the profilers' path: "
+                         f"{counts}")
+    if any(plain.values()):
+        raise SystemExit(f"the profilers ran a plain compositor: {plain}")
+    from splatslam_tpu_torch.tools import map_step_profile as MSP
+    clouds = {}
+    for label, argv in (("profiler cloud", []),
+                        ("profiler dense cloud", ["--dense"])):
+        s = MSP.setup(MSP.build_parser().parse_args(argv), dev)
+        clouds[label] = kernel_phase(label, s.packets, s.tile_ids,
+                                     s.tile_counts, s.ntx,
+                                     referee=bool(argv))
+        del s
+        torch.cuda.empty_cache()
+    return counts, clouds
+
+
 def main(argv=None):
     import argparse
     import torch
@@ -1729,6 +1849,8 @@ def main(argv=None):
     ap.add_argument("--multidevice-only", action="store_true",
                     help="only the build, the replica_scale path and phase "
                     "14 (over distinct cards where several are visible)")
+    ap.add_argument("--profilers-only", action="store_true",
+                    help="only the build and the profilers phase")
     ap.add_argument("--time-flags", default=None,
                     help="extra nvcc flags (space-separated; several sets "
                     "separated by '|', an empty set is the port's own "
@@ -1791,6 +1913,10 @@ def main(argv=None):
         multidevice_phase(slam, dev)
         refuse_jax()
         return 0
+    if args.profilers_only:
+        profilers_phase(dev)
+        refuse_jax()
+        return 0
     if args.learned_only:
         _, learned, _ = learned_path(dev)
         kernel_phase("learned final window", *window_input(learned))
@@ -1839,6 +1965,7 @@ def main(argv=None):
     loop_phase(dev, learned_res)
     trace_phase(dev, learned_res)
     tools_phase(dev)
+    counts_profilers, profiler_clouds = profilers_phase(dev)
     check_pretrained()
     src = "splatslam_tpu_torch/csrc/composite.cu"
     replaces = {"composite_fwd": "splatslam_tpu/ops/raster_pallas.py:333",
@@ -1851,7 +1978,8 @@ def main(argv=None):
             launches=counts[name], launches_learned=counts_learned[name],
             launches_prior=counts_prior[name],
             launches_recorded=counts_recorded[name],
-            launches_multidevice=counts_multi[name], **m,
+            launches_multidevice=counts_multi[name],
+            launches_profilers=counts_profilers[name], **m,
             one_camera={k: v for k, v in single[name].items()
                         if k != "library_ms"},
             window={k: v for k, v in w.items() if k != "library_ms"},
@@ -1860,7 +1988,10 @@ def main(argv=None):
             prior_window={k: v for k, v in window_prior[name].items()
                           if k != "library_ms"},
             multidevice_shard={k: v for k, v in window_shard[name].items()
-                               if k != "library_ms"}))
+                               if k != "library_ms"},
+            **{label.replace(" ", "_"): {k: v for k, v in c[name].items()
+                                         if k != "library_ms"}
+               for label, c in profiler_clouds.items()}))
     refuse_jax()
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

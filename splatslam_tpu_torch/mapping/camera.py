@@ -22,6 +22,20 @@ class Camera:
     w2c: np.ndarray                  # (4, 4) current estimate
     w2c_gt: np.ndarray               # (4, 4) from the tracker
 
+    @property
+    def R(self):
+        return self.w2c[:3, :3]
+
+    @property
+    def T(self):
+        return self.w2c[:3, 3]
+
+    def update_RT(self, R, t):
+        w2c = np.eye(4, dtype=np.float64)
+        w2c[:3, :3] = np.asarray(R)
+        w2c[:3, 3] = np.asarray(t)
+        self.w2c = w2c
+
 
 def make_camera(uid, image, depth, w2c, device=None):
     """`device` None is the GPU (resolve_device)."""

@@ -126,6 +126,10 @@ def get_colors_dc(st):
 
 # -- KNN scale init ----------------------------------------------------------
 
+def num_alive(st) -> int:
+    return int(st.alive.sum())
+
+
 def mean_sq_dist_3nn(points, valid, row_chunk=512):
     """Mean squared distance to the 3 nearest valid neighbors (simple-knn
     distCUDA2 equivalent), in row chunks to bound memory."""

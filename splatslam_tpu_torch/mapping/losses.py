@@ -10,6 +10,10 @@ import torch
 import torch.nn.functional as F
 
 
+def l1_loss(a, b):
+    return (a - b).abs().mean()
+
+
 def psnr(img, gt, mask=None):
     if mask is not None:
         mse = (((img - gt) ** 2) * mask).sum() / torch.clamp(mask.sum(),
@@ -50,6 +54,31 @@ def ssim(img1, img2, window_size=11):
     m = ((2 * mu12 + C1) * (2 * s12 + C2)) / (
         (mu1_sq + mu2_sq + C1) * (s1 + s2 + C2))
     return m.mean()
+
+
+def image_gradient(image):
+    """Scharr gradients of an (H, W) image, or of the mean over the
+    channels of an (H, W, C) one, with reflect padding
+    (slam_utils.py:10-27). Returns (grad_v, grad_h)."""
+    if image.dim() == 3:
+        image = image.mean(-1)
+    k = torch.tensor([[3.0, 0, -3], [10, 0, -10], [3, 0, -3]],
+                     device=image.device) / 32.0
+    pad = F.pad(image[None, None], (1, 1, 1, 1), mode="reflect")
+    return (F.conv2d(pad, k.T[None, None])[0, 0],
+            F.conv2d(pad, k[None, None])[0, 0])
+
+
+def image_gradient_mask(image, eps=0.01):
+    """Whether every pixel of the reflect-padded 3×3 neighbourhood is above
+    eps in magnitude (slam_utils.py:30-44); the same mask twice."""
+    if image.dim() == 3:
+        image = image.mean(-1)
+    ok = (F.pad(image[None, None], (1, 1, 1, 1), mode="reflect").abs()
+          > eps).float()
+    full = F.conv2d(ok, torch.ones((1, 1, 3, 3), device=image.device)
+                    )[0, 0] == 9.0
+    return full, full
 
 
 def mapping_loss(image, depth, gt_image, gt_depth, alpha=0.8,

@@ -679,7 +679,20 @@ class Mapper:
                 self._handle_host_events(densify_cfg, n_touched)
         if (store_expo or persist_exp_state or (opt_poses and n_opt)
                 or densify_cfg is not None):
-            self._alive_ub = int(self.st.alive.sum())
+            # one read for the alive bound and Σ n_touched of the last
+            # iteration (the JAX package's packed pull, mapper.py:127-135)
+            alive = self.st.alive.sum()
+            blend = alive * 0 if last is None else last[1].sum()
+            alive, blend = torch.stack([alive, blend]).tolist()
+            self._alive_ub = int(alive)
+            # JAX mapper.py:960-968, per iteration: ≈ 110 F per blend pair
+            # (forward ≈ 30, backward ≈ 80), ≈ 500 F of projection forward
+            # and backward per (camera, Gaussian) row, and the loss ≈
+            # 1.5 kF (SSIM) or 200 F per (camera, pixel)
+            loss_f = 1500.0 if self.use_ssim else 200.0
+            self.video.flops_mapping += float(iters) * (
+                float(blend) * 110.0 + B * self.st.capacity * 500.0
+                + B * self.H * self.W * loss_f)
             expo_np = expo.cpu().numpy()
             if store_expo:
                 for i, c in enumerate(cams):
@@ -920,6 +933,11 @@ class Mapper:
         Returns (depth, w2c, invalid, median, (cur_vis, inter, occ_sum))."""
         res = self.refresh_keyframes([(video_idx, frame_idx)])
         depth, w2c, invalid = res[video_idx]
+        # JAX mapper.py:1310-1316: fusion ≈ 500 F a pixel, the gate render
+        # one projection over the capacity and a K-capped composite at
+        # ~25% mean tile occupancy
+        self.video.flops_mapping += float(self.H * self.W) * (
+            500.0 + 0.25 * self.K * 110.0) + float(self.st.capacity) * 500.0
         out = render_eval(self.st, self._tensor(w2c)[None], self.intrinsics,
                           H=self.H, W=self.W, K=self.K,
                           sh_degree=self.sh_degree,

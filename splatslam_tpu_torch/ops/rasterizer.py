@@ -212,6 +212,16 @@ def bin_gaussians_batch(means2d, radius, depth, visible, n_tiles_x,
     return ids.to(torch.int32), counts.to(torch.int32)
 
 
+def bin_gaussians(means2d, radius, depth, visible, n_tiles_x, n_tiles_y,
+                  K, max_span=4):
+    """One-camera bin_gaussians_batch: means2d (N,2), radius/depth/visible
+    (N,) → (tile_ids (T,K), counts (T,))."""
+    ids, counts = bin_gaussians_batch(
+        means2d[None], radius[None], depth[None], visible[None], n_tiles_x,
+        n_tiles_y, K, max_span)
+    return ids[0], counts[0]
+
+
 @torch.no_grad()
 def bin_batch(means3D, scales, rotations, opacities, alive, w2cs, taus,
               intrinsics, *, H, W, K, max_span=4, near=0.01, margin=0.0):
@@ -457,6 +467,21 @@ def rasterize_batch(means3D, scales, rotations, opacities, colors, alive,
     radii = torch.where(visible, radius, torch.zeros_like(radius)).detach()
     return RenderOutput(color=color, depth=img[..., 3], alpha=alpha,
                         radii=radii, n_touched=n_touched, means2d=means2d)
+
+
+def rasterize(means3D, scales, rotations, opacities, colors, alive, w2c,
+              tau, intrinsics, bg, means2d_dummy=None, *, H, W, K=512,
+              max_span=4, near=0.01):
+    """One-camera rasterize_batch: w2c (4,4), tau (6,), means2d_dummy
+    (N,2); the outputs without the camera dimension. Differentiable in the
+    Gaussian parameters and tau."""
+    out = rasterize_batch(
+        means3D, scales, rotations, opacities, colors, alive, w2c[None],
+        tau[None], intrinsics, bg,
+        None if means2d_dummy is None else means2d_dummy[None], H=H, W=W,
+        K=K, max_span=max_span, near=near)
+    return RenderOutput(**{f.name: getattr(out, f.name)[0]
+                           for f in dataclasses.fields(out)})
 
 
 def rasterize_reference(means3D, scales, rotations, opacities, colors,

@@ -220,7 +220,21 @@ def _disp8(full, down, h, w):
 
 
 class DepthVideo:
-    """Host facade over VideoState, mirroring the reference API."""
+    """Host facade over VideoState, mirroring the reference API.
+
+    `flops_tracking` / `flops_mapping` are the achieved-FLOP accounting of
+    the JAX package (depth_video.py:295-299): host arithmetic only, no
+    device work and no sync, that the tracker's and the mapper's producers
+    add to with the JAX coefficients unchanged; a bench divides their sum
+    by the run's wall. Counting rule: the JAX package counts what its
+    device computes, padding included ("the padded pair count is what the
+    kernel actually computes", depth_video.py:394-396). This port pads
+    nothing — its edge sets, BA plans, admission chunks and camera batches
+    have exact sizes — so it counts its own exact sizes with the same
+    coefficients, and each frame distance once (it has no speculative
+    `distance_async` whose discarded result the JAX package counts a
+    second time). On the same run the port's totals are therefore at most
+    the JAX package's."""
 
     def __init__(self, cfg, device=None):
         self.cfg = cfg
@@ -236,6 +250,8 @@ class DepthVideo:
         self.counter = 0
         self.dirty = np.zeros(self.buffer, bool)
         self.npc_dirty = np.zeros(self.buffer, bool)
+        self.flops_tracking = 0.0
+        self.flops_mapping = 0.0
 
     @property
     def intr0(self):
@@ -308,6 +324,11 @@ class DepthVideo:
     def distance(self, ii, jj, beta=0.3, bidirectional=False):
         """Frame distance (depth_video.py:180-210); host numpy result."""
         ii_t, jj_t = self._idx(ii), self._idx(jj)
+        # JAX depth_video.py:397-400: every pixel of a pair reprojected
+        # twice (pose-induced and translation-only flow) ≈ 2×600 F
+        px = (self.H // self.down) * (self.W // self.down)
+        self.flops_tracking += ((2 if bidirectional else 1)
+                                * ii_t.shape[0] * px * 1.2e3)
         s = self.state
         d = frame_distance(s.poses, s.disps, self.intr0, ii_t, jj_t, beta)
         if bidirectional:
@@ -448,6 +469,31 @@ class DepthVideo:
         self.npc_dirty[start:end] = True
 
     # -- export (depth_video.py:327-398) ------------------------------------
+
+    def get_pose(self, index):
+        """c2w 4x4 matrix (numpy) of keyframe `index`."""
+        return lie.inv_matrix_np(self.state.poses[index].cpu().numpy())[0]
+
+    def get_depth_and_pose(self, index):
+        """(depth (H,W), valid mask (H,W), c2w 4x4), numpy."""
+        est_disp = self.state.disps_up[index]
+        est_depth = (1.0 / torch.clamp(est_disp, min=1e-8)).cpu().numpy()
+        mask = self.state.valid_depth_mask[index].cpu().numpy()
+        return est_depth, mask, self.get_pose(index)
+
+    @torch.no_grad()
+    def get_depth_scale_and_shift(self, index, mono_depth, est_depth,
+                                  weights):
+        """Fit and store keyframe `index`'s mono-prior scale and shift;
+        returns [scale, shift]."""
+        t = lambda x: torch.as_tensor(
+            x if torch.is_tensor(x) else np.asarray(x),
+            dtype=torch.float32, device=self.device)[None]
+        scale, shift, _ = ba_ops.align_scale_and_shift(
+            t(mono_depth), t(est_depth), t(weights))
+        self.state.depth_scale[index] = scale[0]
+        self.state.depth_shift[index] = shift[0]
+        return [float(scale[0]), float(shift[0])]
 
     def save_video(self, path: str):
         n = self.counter

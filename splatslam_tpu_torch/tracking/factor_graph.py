@@ -377,6 +377,15 @@ class FactorGraph:
         if upsample and self.upsample_flag:
             v.upsample(np.unique(self.ii), upmask)
         self.age += len(opt_types)
+        # JAX factor_graph.py:887-898, per edge-pixel and round: the learned
+        # operator ≈ 2.8 MF (alt-corr + ConvGRU and heads), the oracle
+        # reprojection ≈ 2 kF; DBA ≈ 1.5 kF per plan edge-pixel and
+        # Gauss-Newton iteration, 2 iterations a round
+        px = self.h * self.w
+        n_edges = len(self.ii) + len(ii_in)
+        per_round = (2e3 if self.oracle else 2.8e6) * n_edges * px \
+            + 2 * 1.5e3 * edges.ii.shape[0] * px
+        v.flops_tracking += per_round * len(opt_types)
         if cull_pair is None:
             return None
         ci, cj = self._idx([cull_pair[0]]), self._idx([cull_pair[1]])

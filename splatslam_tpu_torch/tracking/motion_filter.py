@@ -179,6 +179,11 @@ class MotionFilter:
         return None if mono is None else _disp8_np(mono, self.video.down,
                                                    h8, w8)
 
+    def _enc_flops(self):
+        """FLOPs of one encoder pass (JAX motion_filter.py:292-296): ≈ 8 kF
+        per input pixel; one update step is ≈ 2.8 MF per 1/8-res pixel."""
+        return float(self.video.H * self.video.W) * 8e3
+
     def decide_batch(self, images_u8, n):
         """The admission scan over a chunk (C,H,W,3) of which the first `n`
         frames count (a padded tail's decisions are discarded). Returns
@@ -188,6 +193,12 @@ class MotionFilter:
             self.model, images_u8, self.fmap, self.net, self.inp,
             float(self.thresh))
         C = gmaps.shape[0]
+        # JAX motion_filter.py:242-244: both encoders and one update step
+        # per frame of the chunk
+        h8 = self.video.H // self.video.down
+        w8 = self.video.W // self.video.down
+        self.video.flops_tracking += C * (2 * self._enc_flops()
+                                          + h8 * w8 * 2.8e6)
         small = pack.cpu().numpy()      # the chunk's single device pull
         return small[:C][:n] > 0.5, small[C:][:n], gmaps, nets, inps
 
@@ -225,13 +236,17 @@ class MotionFilter:
                         and gt_pose is not None
                         and self._last_gt is not None)
         gmap = delta_mag = None
+        # the FLOP counts of JAX motion_filter.py:300, 305, 345, 348
+        enc_f = self._enc_flops()
         if self.video.counter == 0 or (self.oracle and not oracle_gated):
             with T("mf.encode_f"):
                 gmap = encode_features(self.model, image)
+                self.video.flops_tracking += enc_f
         elif not self.oracle:
             with T("mf.track_kernel"):
                 gmap, delta_mag = track_kernel(self.model, image, self.fmap,
                                                self.net, self.inp)
+                self.video.flops_tracking += enc_f + h8 * w8 * 2.8e6
         # oracle_gated: admission needs only GT flow; the features are
         # encoded below, only for admitted keyframes
 
@@ -263,8 +278,10 @@ class MotionFilter:
             if gmap is None:
                 with T("mf.encode_f"):
                     gmap = encode_features(self.model, image)
+                    self.video.flops_tracking += enc_f
             with T("mf.encode_c"):
                 net, inp = encode_context(self.model, image)
+                self.video.flops_tracking += enc_f
             self.fmap, self.net, self.inp = gmap, net, inp
             mono = self._mono(tstamp, image, h8, w8)
             with T("mf.append"):

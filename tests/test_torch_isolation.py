@@ -21,7 +21,7 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for n in names:
     importlib.import_module(n)
 bad = [k for k in ("jax", "splatslam_tpu") if k in sys.modules]
-print(len(names), bad)
+print(len(names), bad, " ".join(names))
 sys.exit(1 if bad else 0)
 """
 
@@ -34,6 +34,38 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert res.returncode == 0, res.stdout + res.stderr
     n_modules = int(res.stdout.split()[0])
     assert n_modules >= 20
+    walked = res.stdout.split()
+    for tool in ("kernel_bench", "map_step_profile", "tracking_profile"):
+        assert f"splatslam_tpu_torch.tools.{tool}" in walked
+
+
+def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
+    """Every import statement of chip_smoke.py, at any depth (it imports
+    lazily inside its phases), names neither jax nor the JAX package, and
+    its refuse_jax check names both."""
+    import ast
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    mods = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            mods.add(node.module)
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "attr", None) == "import_module":
+            arg = node.args[0]     # a name or an f-string's fixed head
+            if isinstance(arg, ast.JoinedStr):
+                arg = arg.values[0]
+            mods.add(arg.value)
+    roots = {m.split(".")[0] for m in mods}
+    assert "splatslam_tpu_torch" in roots
+    assert not roots & {"jax", "jaxlib", "flax", "optax", "splatslam_tpu"}
+    assert any("splatslam_tpu_torch.tools." in m for m in mods)
+    refuse = next(n for n in ast.walk(tree) if isinstance(
+        n, ast.FunctionDef) and n.name == "refuse_jax")
+    names = {c.value for c in ast.walk(refuse) if isinstance(c, ast.Constant)}
+    assert {"jax", "splatslam_tpu"} <= names
 
 
 def test_run_without_device_raises_when_no_gpu(monkeypatch):

@@ -14,6 +14,11 @@ within 3e-3, measured 7.9e-4 — 12 more network rounds per frame). The
 mapper's random draws (anchor subsampling, split noise) come from
 jax.random in one package and torch.Generator in the other, so PSNR and the
 depth L1s are held to a band instead: 1.5 dB and 0.05 m at this size.
+
+Each configuration runs once in each package (module fixtures); the
+results' tests and the whole-run check of the achieved-FLOP counters
+(test_flops_against_jax; producer by producer in test_torch_flops.py) read
+the same runs.
 """
 
 import json
@@ -63,17 +68,6 @@ def _hook(frames):
     return lambda i, ts, kf: frames.append((int(i), float(ts), int(kf)))
 
 
-def _record_port_frames(monkeypatch):
-    """Every port SLAM.run in this test records its on_frame calls into the
-    returned list."""
-    from splatslam_tpu_torch.slam import SLAM
-    frames = []
-    run = SLAM.run
-    monkeypatch.setattr(SLAM, "run",
-                        lambda self: run(self, on_frame=_hook(frames)))
-    return frames
-
-
 def _run_jax(cfg):
     from splatslam_tpu.slam import SLAM
     slam = SLAM(cfg)
@@ -89,7 +83,8 @@ def _run_jax(cfg):
                psnr=r["mean_psnr"], depth_l1=r["mean_depth_l1"],
                proxy_depth_l1=proxy, frames=frames,
                kf_stamps=np.asarray(slam.video.state.timestamp[
-                   :slam.video.counter]).tolist())
+                   :slam.video.counter]).tolist(),
+               flops=(slam.video.flops_tracking, slam.video.flops_mapping))
     full = os.path.join(save, "traj", "metrics_full_traj.txt")
     if os.path.exists(full):
         with open(full) as f:
@@ -97,17 +92,47 @@ def _run_jax(cfg):
     return out
 
 
-def test_oracle_slam_matches_jax(tmp_path, monkeypatch):
+def _run_both(root, mp, learned):
+    """`python -m splatslam_tpu_torch.run` on the CPU, then the JAX SLAM,
+    on the same configuration. Returns (port results, JAX results, the
+    port's on_frame calls, the port's SLAM object)."""
     import yaml
     from splatslam_tpu_torch import run
-    monkeypatch.chdir(REPO)
-    cfg_t = _cfg(tmp_path / "torch")
-    path = tmp_path / "tiny.yaml"
+    from splatslam_tpu_torch.slam import SLAM
+    mp.chdir(REPO)
+    if learned:
+        mp.setenv("SPLATSLAM_F32_NET", "1")
+    path = root / "tiny.yaml"
     with open(path, "w") as f:
-        yaml.dump(cfg_t, f)
-    frames = _record_port_frames(monkeypatch)
+        yaml.dump(_cfg(root / "torch", learned=learned), f)
+    frames, slams = [], []
+    run_ = SLAM.run
+
+    def recording_run(self):
+        slams.append(self)
+        return run_(self, on_frame=_hook(frames))
+    mp.setattr(SLAM, "run", recording_run)
     got = run.main([str(path), "--device", "cpu"])
-    want = _run_jax(_cfg(tmp_path / "jax"))
+    want = _run_jax(_cfg(root / "jax", learned=learned))
+    return got, want, frames, slams[0]
+
+
+@pytest.fixture(scope="module")
+def oracle_runs(tmp_path_factory):
+    root = tmp_path_factory.mktemp("oracle")
+    with pytest.MonkeyPatch.context() as mp:
+        return (root,) + _run_both(root, mp, learned=False)
+
+
+@pytest.fixture(scope="module")
+def learned_runs(tmp_path_factory):
+    root = tmp_path_factory.mktemp("learned")
+    with pytest.MonkeyPatch.context() as mp:
+        return (root,) + _run_both(root, mp, learned=True)
+
+
+def test_oracle_slam_matches_jax(oracle_runs):
+    root, got, want, frames, _ = oracle_runs
     print("port", {k: got[k] for k in want if k in got}, "jax", want)
     assert frames == want["frames"]
     assert [f[0] for f in frames] == list(range(12))
@@ -116,31 +141,21 @@ def test_oracle_slam_matches_jax(tmp_path, monkeypatch):
     assert np.isfinite(got["psnr"]) and abs(got["psnr"] - want["psnr"]) <= 1.5
     assert abs(got["depth_l1"] - want["depth_l1"]) <= 0.05
     assert abs(got["proxy_depth_l1"] - want["proxy_depth_l1"]) <= 0.05
-    assert os.path.exists(tmp_path / "torch" / "tiny" / "gaussians.ply")
+    assert os.path.exists(root / "torch" / "tiny" / "gaussians.ply")
 
 
-def test_learned_slam_matches_jax(tmp_path, monkeypatch):
+def test_learned_slam_matches_jax(learned_runs):
     """tracking.oracle False: learned admission (per-frame, then chunked),
     learned frontend rounds, final BA, mapping, refine, every evaluation
     and the trajectory filler, in both packages."""
-    import yaml
-    from splatslam_tpu_torch import run
-    monkeypatch.chdir(REPO)
-    monkeypatch.setenv("SPLATSLAM_F32_NET", "1")
-    cfg_t = _cfg(tmp_path / "torch", learned=True)
-    path = tmp_path / "tiny.yaml"
-    with open(path, "w") as f:
-        yaml.dump(cfg_t, f)
-    frames = _record_port_frames(monkeypatch)
-    got = run.main([str(path), "--device", "cpu"])
-    want = _run_jax(_cfg(tmp_path / "jax", learned=True))
+    root, got, want, frames, _ = learned_runs
     assert frames == want["frames"]
     assert [f[0] for f in frames] == list(range(12))
     keys = ("n_keyframes", "ate_rmse", "full_ate_rmse", "psnr", "depth_l1",
             "proxy_depth_l1")
     print("port", {k: got[k] for k in keys}, "jax", {k: want[k] for k in keys})
     assert got["weights"] == "pretrained/droid_dba.msgpack"
-    save = tmp_path / "torch" / "tiny"
+    save = root / "torch" / "tiny"
     with np.load(save / "video.npz") as d:
         assert d["timestamps"].tolist() == want["kf_stamps"]
     assert got["n_keyframes"] == want["n_keyframes"] >= 5
@@ -152,3 +167,40 @@ def test_learned_slam_matches_jax(tmp_path, monkeypatch):
     for name in ("traj/metrics_kf_traj.txt", "traj/metrics_full_traj.txt",
                  "rendering/after_refine/final_result.json", "gaussians.ply"):
         assert os.path.exists(save / name), name
+
+
+def _flops_ratios(runs):
+    _, got, want, _, slam = runs
+    assert "flops_tracking" not in got and "flops_mapping" not in got
+    port = (slam.video.flops_tracking, slam.video.flops_mapping)
+    print("flops port", port, "jax", want["flops"],
+          "ratios", [p / j for p, j in zip(port, want["flops"])])
+    assert all(np.isfinite(x) and x > 0 for x in port + want["flops"])
+    return [p / j for p, j in zip(port, want["flops"])]
+
+
+@pytest.mark.parametrize("which", ["oracle", "learned"])
+def test_flops_against_jax(which, request):
+    """The achieved-FLOP counters of a whole run against the JAX run's.
+
+    Tracking: the port counts its exact edge sets, BA plans, admission
+    chunks and one distance per call; the JAX package counts its padded
+    pools and plans (32·2^k active edges, an inactive block of at least
+    16 rows, plans of 64·2^k) and its discarded speculative distances
+    again, so the port's total is at most JAX's (measured 0.592 oracle,
+    0.746 learned).
+
+    Mapping: the same coefficients over each package's own camera batches
+    and map capacity. JAX pads a 2- or 3-camera window to 4 (up to 2× the
+    per-camera terms), and the mapper's random draws (anchor subsampling,
+    densification noise) differ between the packages, which moves the
+    alive count and so whether the map's capacity doubles (the B·capacity
+    projection term doubles with it) and Σ n_touched. Either moves the
+    ratio by at most a factor of 2, hence the band; measured 0.933 oracle
+    (JAX's padded windows) and 1.326 learned (the port's capacity grew to
+    16384 after the first keyframe — 3288 alive plus 4096 new slots
+    crossed 0.9 · 8192 — where JAX's 3271 did not)."""
+    track, mapping = _flops_ratios(request.getfixturevalue(
+        f"{which}_runs"))
+    assert track <= 1.0
+    assert 0.5 <= mapping <= 2.0

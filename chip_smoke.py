@@ -9,6 +9,7 @@
     python3 chip_smoke.py --multidevice-only  # phases 1-2 and 14 only (on
         # a machine with several cards, phase 14 also splits over them)
     python3 chip_smoke.py --profilers-only # phases 1-2 and 18 only
+    python3 chip_smoke.py --bench-only     # phases 1-2 and 19 only
     python3 chip_smoke.py --kernels-only "--time-flags= |-fmad=true"
         # also time the kernels built with other nvcc flags (here: the
         # port's own and -fmad=true) and report how far their results move
@@ -154,7 +155,19 @@ Phases, each unguarded (any failure exits non-zero):
      The main path (phase 4) and every SLAM path also print the run's
      achieved-FLOP counters (`flops_tracking`, `flops_mapping`) and their
      sum over the run's wall;
- 19. the kernels JSON line, then the device JSON line last.
+ 19. bench phase: `python -m splatslam_tpu_torch.bench` (the port's
+     bench.py: its modes and lines) as a subprocess over its four
+     modes, cut to 24 measured frames, a 6-frame prime and 32 refinement
+     iterations (BENCH_CUT), on the kernels phase 2 built; gates: exit 0,
+     every stdout line JSON, a final line for each mode without `error`,
+     kf-ATE <= 0.01 (oracle) and <= 0.25 (learned), achieved_tflops > 0,
+     0 < mfu < 1.05, prime_ok, the probe names this card, the oracle final
+     last, and both kernels launched and no plain compositor in each
+     mode's measured run (the bench's `launches` events); then a short run
+     cut by SIGTERM must print the partial line, then the last final, and
+     exit 0. Its lines are kept in bench.out and bench.err beside the
+     paths' outputs;
+ 20. the kernels JSON line, then the device JSON line last.
 
 The machine this script is written for has numpy, scipy, cv2 and PIL and no
 matplotlib: every path runs with `eval_plots` off (panels and trajectory
@@ -165,8 +178,8 @@ phase 12 needs cv2.
 13-17, `--train-only` phases 3-12 and 14-17, `--last-only` phases 3 and 5-13
 but runs phase 4 (the input of phase 14) and phase 7's learned path (whose
 hook and loop_ba calls phases 15 and 16 read) without their kernel checks,
-`--multidevice-only` runs phase 4 and phase 14, `--profilers-only` phase 18
-(none of them prints the kernels line).
+`--multidevice-only` runs phase 4 and phase 14, `--profilers-only` phase 18,
+`--bench-only` phase 19 (none of them prints the kernels line).
 
 Exits non-zero without printing a result when no CUDA device is present,
 or when the port's package is not beside this script.
@@ -178,6 +191,7 @@ import hashlib
 import json
 import math
 import os
+import signal
 import subprocess
 import sys
 import time
@@ -1829,6 +1843,133 @@ def profilers_phase(dev):
     return counts, clouds
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the benchmark
+# ---------------------------------------------------------------------------
+
+# the bench's four modes cut to 24 measured frames (the smoke scenes' 40,
+# replica_scale's 60 at the bench's defaults), a 6-frame prime and 32 final
+# refinement iterations: widths, capacities and windows stay the configs'
+BENCH_CUT = {"BENCH_FRAMES": "24", "BENCH_PRIME_FRAMES": "6",
+             "BENCH_REFINE": "32"}
+BENCH_MODES = ("learned", "oracle", "replica_scale", "dpt")
+# kf-ATE gates of PERF.md §2 by mode (the oracle and learned paths' own)
+BENCH_ATE = {"oracle": 0.01, "learned": 0.25}
+
+
+def bench_env(**kw):
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    env.update(BENCH_OUT=os.path.join(HERE, "chiprun_out", "bench"), **kw)
+    return env
+
+
+def bench_lines(text, label):
+    try:
+        return [json.loads(x) for x in text.splitlines()]
+    except json.JSONDecodeError as e:
+        raise SystemExit(f"{label}: a stdout line is not JSON: {e}")
+
+
+def bench_phase():
+    """Phase 19: `python -m splatslam_tpu_torch.bench` as a subprocess over
+    its four modes at BENCH_CUT, on the kernels already built; its stdout
+    and stderr go to bench.out and bench.err beside the paths' outputs.
+    Gates: exit 0, every
+    stdout line JSON, one final line a mode without `error`, kf-ATE gates,
+    achieved_tflops > 0 and 0 < mfu < 1.05, prime_ok, the probe names this
+    card, the last line is the oracle final, and in each mode's measured
+    run (the bench's `launches` events, counted from 0 just before it) both
+    kernels launched and no plain compositor ran. Then a short run (two
+    oracle modes, 8 frames, no prime) gets SIGTERM after its second mode's
+    first partial line: exit 0, that mode's partial line, then the first
+    mode's final. Returns the launch counts summed over the four modes."""
+    import torch
+    log(f"bench phase, card: {card_line()}; cut: {BENCH_CUT}")
+    torch.cuda.empty_cache()
+    out_dir = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "splatslam_tpu_torch.bench"],
+                       cwd=HERE, env=bench_env(**BENCH_CUT),
+                       capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    for ext, text in (("out", r.stdout), ("err", r.stderr)):
+        with open(os.path.join(out_dir, f"bench.{ext}"), "w") as f:
+            f.write(text)
+    log(f"bench: exit {r.returncode} in {wall:.1f} s; stderr tail:\n"
+        + "\n".join(r.stderr.splitlines()[-5:]))
+    lines = bench_lines(r.stdout, "bench")
+    finals = {}
+    for x in lines:
+        if not x.get("partial", True) or "error" in x:
+            finals.setdefault(x["metric"], x)
+    for x in finals.values():
+        log("bench final: " + json.dumps(
+            {k: v for k, v in x.items() if k not in ("phases", "probe")}))
+    log("bench probe: " + json.dumps(lines[-1].get("probe")))
+    events = [json.loads(x) for x in r.stderr.splitlines()
+              if x.startswith('{"event"')]
+    launches = {e["mode"]: e for e in events if e["event"] == "launches"}
+    log("bench launches: " + json.dumps(launches))
+    if r.returncode != 0:
+        raise SystemExit(f"bench exited {r.returncode}")
+    card = card_line().split(",")[0].strip()
+    counts = {"composite_fwd": 0, "composite_bwd": 0}
+    for mode in BENCH_MODES:
+        f = finals.get(f"e2e_fps_synthetic_{mode}")
+        if f is None or f["partial"] or "error" in f:
+            raise SystemExit(f"bench: no final line for {mode}: {f}")
+        if mode in BENCH_ATE and not f["kf_ate_rmse"] <= BENCH_ATE[mode]:
+            raise SystemExit(f"bench {mode}: kf-ATE {f['kf_ate_rmse']} above "
+                             f"{BENCH_ATE[mode]}")
+        if not (f.get("achieved_tflops", 0) > 0
+                and 0 < f.get("mfu", 0) < 1.05 and f["prime_ok"]):
+            raise SystemExit(f"bench {mode}: achieved_tflops/mfu/prime_ok "
+                             f"out of range: {f}")
+        if f["probe"]["device"] != card:
+            raise SystemExit(f"bench probe names {f['probe']['device']}, "
+                             f"not {card}")
+        e = launches.get(mode, {})
+        if min(e.get(k, 0) for k in counts) <= 0 or any(
+                e.get("plain", {}).values()):
+            raise SystemExit(f"bench {mode}: a kernel never launched or a "
+                             f"plain compositor ran: {e}")
+        for k in counts:
+            counts[k] += e[k]
+    if lines[-1]["metric"] != "e2e_fps_synthetic_oracle" or \
+            lines[-1]["partial"]:
+        raise SystemExit(f"bench: the last line is not the oracle final: "
+                         f"{lines[-1]}")
+
+    p = subprocess.Popen(
+        [sys.executable, "-m", "splatslam_tpu_torch.bench"], cwd=HERE,
+        env=bench_env(BENCH_MODES="oracle,oracle", BENCH_FRAMES="8",
+                      BENCH_PRIME="0", BENCH_REFINE="8",
+                      BENCH_TUNNEL_PROBE_S="0"),
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        seen = []
+        for raw in p.stdout:
+            seen.append(json.loads(raw))
+            if len(seen) >= 2 and seen[-2]["partial"] is False:
+                break
+        p.send_signal(signal.SIGTERM)
+        rest, _ = p.communicate(timeout=120)
+    finally:
+        p.kill()
+        p.wait(timeout=60)
+    rest = bench_lines(rest, "bench SIGTERM run")
+    log(f"bench SIGTERM run: exit {p.returncode}; lines after the signal: "
+        + json.dumps(rest))
+    if p.returncode != 0 or len(seen) < 2 or len(rest) < 2 or \
+            not all(x["partial"] for x in rest[:-1]) or \
+            rest[-1] != seen[-2]:
+        raise SystemExit("bench: SIGTERM did not print the partial line and "
+                         "then the last final line with exit 0")
+    log(f"bench phase: {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def main(argv=None):
     import argparse
     import torch
@@ -1851,6 +1992,8 @@ def main(argv=None):
                     "14 (over distinct cards where several are visible)")
     ap.add_argument("--profilers-only", action="store_true",
                     help="only the build and the profilers phase")
+    ap.add_argument("--bench-only", action="store_true",
+                    help="only the build and the benchmark phase")
     ap.add_argument("--time-flags", default=None,
                     help="extra nvcc flags (space-separated; several sets "
                     "separated by '|', an empty set is the port's own "
@@ -1917,6 +2060,11 @@ def main(argv=None):
         profilers_phase(dev)
         refuse_jax()
         return 0
+    if args.bench_only:
+        bench_phase()
+        check_pretrained()
+        refuse_jax()
+        return 0
     if args.learned_only:
         _, learned, _ = learned_path(dev)
         kernel_phase("learned final window", *window_input(learned))
@@ -1966,6 +2114,7 @@ def main(argv=None):
     trace_phase(dev, learned_res)
     tools_phase(dev)
     counts_profilers, profiler_clouds = profilers_phase(dev)
+    counts_bench = bench_phase()
     check_pretrained()
     src = "splatslam_tpu_torch/csrc/composite.cu"
     replaces = {"composite_fwd": "splatslam_tpu/ops/raster_pallas.py:333",
@@ -1979,7 +2128,8 @@ def main(argv=None):
             launches_prior=counts_prior[name],
             launches_recorded=counts_recorded[name],
             launches_multidevice=counts_multi[name],
-            launches_profilers=counts_profilers[name], **m,
+            launches_profilers=counts_profilers[name],
+            launches_bench=counts_bench[name], **m,
             one_camera={k: v for k, v in single[name].items()
                         if k != "library_ms"},
             window={k: v for k, v in w.items() if k != "library_ms"},

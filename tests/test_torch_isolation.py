@@ -1,5 +1,6 @@
 """The port stands alone: importing every module of splatslam_tpu_torch
-loads neither jax nor the JAX package, and its entry point and every public
+(its benchmark included) loads neither jax, the JAX package nor the
+repository's bench.py, and its entry point and every public
 constructor refuse to run on a machine without a GPU unless the caller
 names the device."""
 
@@ -20,7 +21,7 @@ import splatslam_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for n in names:
     importlib.import_module(n)
-bad = [k for k in ("jax", "splatslam_tpu") if k in sys.modules]
+bad = [k for k in ("jax", "splatslam_tpu", "bench") if k in sys.modules]
 print(len(names), bad, " ".join(names))
 sys.exit(1 if bad else 0)
 """
@@ -37,6 +38,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     walked = res.stdout.split()
     for tool in ("kernel_bench", "map_step_profile", "tracking_profile"):
         assert f"splatslam_tpu_torch.tools.{tool}" in walked
+    # the benchmark, without the repository's bench.py ("bench")
+    assert "splatslam_tpu_torch.bench" in walked
 
 
 def test_chip_smoke_imports_neither_jax_nor_the_jax_package():

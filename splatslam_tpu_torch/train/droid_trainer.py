@@ -16,8 +16,9 @@ Synthetic scenes:
     the differentiable bundle adjustment layer (ops/ba.dba), supervised on
     poses, disparities and flow after every round.
 
-Everything is plain PyTorch under autograd, float32 (the caller keeps TF32
-off on the GPU, as the JAX package's parity runs are full float32). Where
+Everything is plain PyTorch under autograd, float32 (TF32 off on the
+GPU: `train` and `train_dba` resolve their device through
+`resolve_device`, as the JAX package's parity runs are full float32). Where
 the JAX code takes a subgradient at a kink (|x| at 0, max/clip at a tie)
 the port takes the same one (`_abs`, `_clip`, ops/corr's hat), so the two
 packages agree on gradients and not only on values.
@@ -382,14 +383,17 @@ def _run(step_fn, pre, steps, device, log_every, ckpt_every, ckpt_path,
     every `log_every` steps, checkpoint every `ckpt_every`. `records`, when
     a dict, gets "pool_render_s" (the pool's host render time, None for the
     prefetcher) and "steps", one dict per step (image shape, milliseconds
-    to the end of the step on the device, metrics), at the cost of a
-    synchronisation per step."""
+    to the end of the step on the device, milliseconds the loop waited for
+    the batch and its upload, metrics), at the cost of a synchronisation
+    per step, and "wall_s", the loop's wall with its checkpoint saves."""
     history = []
+    t_start = time.perf_counter()
     if records is not None:
         records["pool_render_s"] = getattr(pre, "render_s", None)
         records["steps"] = []
     try:
         for step in range(steps):
+            t_get = time.perf_counter()
             batch = [t.to(device) for t in pre.get()]
             t0 = time.perf_counter()
             m = step_fn(*batch)
@@ -399,6 +403,7 @@ def _run(step_fn, pre, steps, device, log_every, ckpt_every, ckpt_path,
                 records["steps"].append(dict(
                     step=step, shape=tuple(batch[0].shape[-3:-1]),
                     ms=(time.perf_counter() - t0) * 1e3,
+                    wait_ms=(t0 - t_get) * 1e3,
                     **{k: float(v) for k, v in m.items()}))
             if step % log_every == 0 or step == steps - 1:
                 history.append(line(step, m, batch[0].shape[-3:-1]))
@@ -408,6 +413,8 @@ def _run(step_fn, pre, steps, device, log_every, ckpt_every, ckpt_path,
     finally:
         pre.close()
     _save(model, ckpt_path)
+    if records is not None:
+        records["wall_s"] = time.perf_counter() - t_start
     return history
 
 

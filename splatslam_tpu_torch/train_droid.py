@@ -25,7 +25,7 @@ from __future__ import annotations
 import argparse
 
 
-def main(argv=None):
+def build_parser():
     ap = argparse.ArgumentParser()
     ap.add_argument("--stage", choices=("flow", "dba", "both"),
                     default="flow")
@@ -49,13 +49,23 @@ def main(argv=None):
                     default="pretrained/droid_dba.msgpack")
     ap.add_argument("--device", type=str, default=None,
                     help="torch device (default: cuda)")
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None, records=None):
+    """records: a dict that, when given, gets each stage's per-step times
+    and metrics under "flow" and "dba" (droid_trainer._run)."""
+    args = build_parser().parse_args(argv)
 
     from . import resolve_device
     from .train.droid_trainer import (FLOW_BUCKETS, load_selftrained, train,
                                       train_dba)
 
-    device = resolve_device(args.device)
+    device = resolve_device(args.device)    # TF32 off on the GPU
+
+    def rec(stage):     # None: _run records nothing and adds no sync
+        return None if records is None else records.setdefault(stage, {})
+
     buckets = FLOW_BUCKETS if args.buckets == "both" else None
     if args.stage in ("flow", "both"):
         init_params_flow = None
@@ -64,11 +74,12 @@ def main(argv=None):
             print(f"[train] flow stage continues from {args.init}")
         train(steps=args.steps, batch=args.batch, lr=args.lr,
               ckpt_path=args.out, buckets=buckets, pool=args.pool,
-              params=init_params_flow, device=device)
+              params=init_params_flow, device=device, records=rec("flow"))
     if args.stage in ("dba", "both"):
         train_dba(steps=args.dba_steps, batch=args.dba_batch, lr=args.dba_lr,
                   init_ckpt=args.out, ckpt_path=args.dba_out,
-                  buckets=buckets, pool=args.pool, device=device)
+                  buckets=buckets, pool=args.pool, device=device,
+                  records=rec("dba"))
     return 0
 
 

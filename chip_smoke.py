@@ -10,8 +10,11 @@
         # a machine with several cards, phase 14 also splits over them)
     python3 chip_smoke.py --profilers-only # phases 1-2 and 18 only
     python3 chip_smoke.py --bench-only     # phases 1-2 and 19 only
-    python3 chip_smoke.py --judge-only CKPT  # phases 1-2, then the tools and
-        # smoke.yaml on the shipped checkpoint and on CKPT side by side
+    python3 chip_smoke.py --judge-only CKPT [--judge-ref REF]  # phases 1-2,
+        # then the tools and smoke.yaml on REF (default the shipped
+        # pretrained/droid_dba.msgpack) and on CKPT side by side
+    python3 chip_smoke.py --dba-eval CKPT [CKPT ...]  # phases 1-2, then
+        # each checkpoint through the DBA stage's loss with no update
     python3 chip_smoke.py --train-cli "ARGS"  # phases 1-2, then
         # `python -m splatslam_tpu_torch.train_droid ARGS` in this process,
         # timed step by step
@@ -109,7 +112,11 @@ runs the port in a child process has the child hold the same check:
          bit-identical to the trained net, and in bf16 one update_step;
      (f) torch.profiler over one flow step and one DBA step at 240x320
          (device busy share, launches, top kernels) and their FLOPs by
-         FlopCounterMode;
+         FlopCounterMode; then at 240x320 (under --train-only at both
+         buckets; batch 2, N=7, 8 rounds) the DBA step (one forward over
+         the batch, one backward) beside the per-scene loop the port ran
+         before it (each scene's loss back-propagated on its own): ms per
+         step (median of 3), launches, busy share, peak memory;
      every file under pretrained/ hashes the same before and after the
      script;
  14. multi-device phase (camera-parallel mapping, run right after phase 6
@@ -180,14 +187,25 @@ runs the port in a child process has the child hold the same check:
  20. the kernels JSON line, then the device JSON line last.
 
 `--judge-only CKPT` (a tracker checkpoint, e.g. one train_droid wrote) runs
-the build, then for pretrained/droid_dba.msgpack and for CKPT in turn: the
-flow probe (EPE and first_delta by gap), the admission calibration
-(admitted/60 at each threshold), the ate_matrix `base` arm (SPLATSLAM_CKPT)
-and one uncut smoke.yaml run with tracking.pretrained set to the
-checkpoint (kf-ATE, full ATE, PSNR, keyframes), one line per tool and
-checkpoint. Gates: every number finite for both; the shipped checkpoint's
+the build, then for the reference (`--judge-ref REF`, default
+pretrained/droid_dba.msgpack; give the shipped
+pretrained/droid_selftrained.msgpack to judge a flow-stage file) and for
+CKPT in turn: the flow probe (EPE and first_delta by gap), the admission
+calibration (admitted/60 at each threshold), the ate_matrix `base` arm
+(SPLATSLAM_CKPT) and one uncut smoke.yaml run with tracking.pretrained set
+to the checkpoint (kf-ATE, full ATE, PSNR, keyframes), one line per tool
+and checkpoint. Gates: every number finite for both; the reference's
 smoke kf-ATE within 0.25 (the JAX suite's learned-tracker bound); CKPT's
 is printed beside that bound.
+
+`--dba-eval CKPT [CKPT ...]` runs the build, then at each of the trainer's
+buckets renders 32 batches of 2 sequences (make_seq_batch, seed 0, N=7)
+once and puts each checkpoint through the DBA stage's loss on them with
+no update (dba_batch_loss, 8 rounds, float32, no gradient): one line per
+checkpoint and bucket with the mean and median over the batches of the
+loss and of the ATE, the metric the trainers log (the JAX trainer logged
+0.005-0.007 m for the shipped file and 0.0044 m for the round-5 one at
+240x320 while training them). Gate: every number finite.
 
 `--train-cli "ARGS"` runs train_droid's main() on ARGS in this process
 (what `python -m splatslam_tpu_torch.train_droid ARGS` runs), with each
@@ -1308,8 +1326,64 @@ def _per_bucket(records, label):
     return out
 
 
-def trainer_phase(dev):
-    """Phase 13 (see the module docstring)."""
+def dba_step_forms(model, opt, dev, buckets, N=7, iters=8):
+    """Phase 13 (f), second half: at each bucket, one batch of 2 scenes
+    through the DBA step (make_dba_train_step: one forward over the batch,
+    one backward) and through the per-scene loop the port ran before it
+    (each scene's dba_scene_loss back-propagated on its own, divided by
+    the batch, then the same optimizer step): ms per step (CUDA-
+    synchronised, median of 3 after a warm-up), launches and device busy
+    time of one step (torch.profiler), peak memory above what was held."""
+    import numpy as np
+    import torch
+    from splatslam_tpu_torch.train import droid_trainer as T
+
+    def per_scene(imgs, disps_gt, poses_gt, intr8):
+        opt.zero_grad()
+        B = imgs.shape[0]
+        for b in range(B):
+            loss, _ = T.dba_scene_loss(model, imgs[b], disps_gt[b],
+                                       poses_gt[b], intr8[b], N, iters)
+            (loss / B).backward()
+        opt.step()
+
+    forms = (("batched", T.make_dba_train_step(model, opt, N=N, iters=iters)),
+             ("per-scene loop", per_scene))
+    for H, W, fx in buckets:
+        seq = [t.to(dev) for t in T.make_seq_batch(np.random.RandomState(0),
+                                                   2, N, H, W, fx)]
+        got = {}
+        for form, step in forms:
+            def run():
+                step(*seq)
+                torch.cuda.synchronize()
+            run()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                run()
+                times.append((time.perf_counter() - t0) * 1e3)
+            peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+            ms = sorted(times)[1]
+            prof = profile_run(f"one DBA step ({form}) at {H}x{W}", run,
+                               warmup=False)
+            got[form] = dict(ms=ms, peak=peak, **prof)
+        ratio = got["batched"]["launches"] / got["per-scene loop"]["launches"]
+        log(f"DBA step at {H}x{W}, batch 2, N={N}, {iters} rounds: "
+            + "; ".join(
+                f"{form} {g['ms']:.1f} ms per step (median of 3), "
+                f"{g['launches']} launches, device busy {g['busy_ms']:.1f} "
+                f"ms ({100 * g['busy_ms'] / g['ms']:.1f}% of the step), "
+                f"peak {g['peak']:.2f} GiB" for form, g in got.items())
+            + f"; launches batched / per-scene {ratio:.3f}")
+
+
+def trainer_phase(dev, both_buckets=False):
+    """Phase 13 (see the module docstring); the DBA step beside the
+    per-scene loop at both buckets with `both_buckets` (--train-only), at
+    240x320 otherwise (each profile of a DBA step costs half a minute)."""
     import tempfile
     import numpy as np
     import torch
@@ -1418,6 +1492,8 @@ def trainer_phase(dev):
             f"recompute and backward), {flops / ms / 1e9:.2f} TFLOP/s at "
             f"the stage's {ms:.1f} ms per step, device busy "
             f"{100 * prof['busy_share']:.1f}%, {prof['launches']} launches")
+    dba_step_forms(model, opt, dev, T.FLOW_BUCKETS if both_buckets
+                   else T.FLOW_BUCKETS[-1:])
     log(f"trainer phase: {time.perf_counter() - t_phase:.1f} s")
 
 
@@ -1877,22 +1953,25 @@ def sha256(path):
         return hashlib.sha256(f.read()).hexdigest()
 
 
-def judge_phase(ckpt, dev):
-    """--judge-only: the tools and one uncut smoke.yaml run on the shipped
-    checkpoint and on `ckpt`, one line per tool and checkpoint (see the
-    module docstring). Gates: every number finite for both; the shipped
-    checkpoint's smoke kf-ATE within 0.25."""
+def judge_phase(ckpt, dev, ref=None):
+    """--judge-only: the tools and one uncut smoke.yaml run on the
+    reference checkpoint (`ref`, default the shipped
+    pretrained/droid_dba.msgpack) and on `ckpt`, one line per tool and
+    checkpoint (see the module docstring). Gates: every number finite for
+    both; the reference's smoke kf-ATE within 0.25."""
     from splatslam_tpu_torch import slam as slam_mod
     from splatslam_tpu_torch.datasets import Synthetic
     from splatslam_tpu_torch.tools import admission_calib as AC
     from splatslam_tpu_torch.tools import ate_matrix as AM
     from splatslam_tpu_torch.tools import flow_probe as FP
-    if not os.path.isfile(ckpt):
-        raise SystemExit(f"judge: no checkpoint at {ckpt}")
+    ref = ref or LEARNED_WEIGHTS
+    for path in (ref, ckpt):
+        if not os.path.isfile(path):
+            raise SystemExit(f"judge: no checkpoint at {path}")
     log("judge, card: " + card_line())
     ds = Synthetic(FP.scene_cfg())
     out = {}
-    for tag, path in (("shipped", LEARNED_WEIGHTS), ("candidate", ckpt)):
+    for tag, path in (("shipped", ref), ("candidate", ckpt)):
         log(f"judge {tag}: {path} sha256 {sha256(path)}")
         r = out[tag] = {}
         t0 = time.perf_counter()
@@ -1959,6 +2038,60 @@ def judge_phase(ckpt, dev):
     if not ship <= 0.25:
         raise SystemExit(f"judge: the shipped checkpoint's kf-ATE {ship} is "
                          "above 0.25")
+
+
+def dba_eval(ckpts, dev, n_batches=32, batch=2, N=7, iters=8, seed=0):
+    """--dba-eval: each checkpoint through the DBA stage's loss with no
+    update, on the same seeded batches per bucket (see the module
+    docstring). Gate: every loss and ATE finite."""
+    import numpy as np
+    import torch
+    from splatslam_tpu_torch import resolve_device
+    from splatslam_tpu_torch.models.weights import load_selftrained
+    from splatslam_tpu_torch.train import droid_trainer as T
+    dev = resolve_device(dev)
+    for path in ckpts:
+        if not os.path.isfile(path):
+            raise SystemExit(f"dba-eval: no checkpoint at {path}")
+        log(f"dba-eval: {path} sha256 {sha256(path)}")
+    log(f"dba-eval, card: {card_line()}; {n_batches} batches of {batch} "
+        f"sequences (make_seq_batch, seed {seed}, N={N}) per bucket, "
+        f"{iters} rounds, no update")
+    out = {}
+    for H, W, fx in T.FLOW_BUCKETS:
+        t0 = time.perf_counter()
+        rng = np.random.RandomState(seed)
+        batches = [T.make_seq_batch(rng, batch, N, H, W, fx)
+                   for _ in range(n_batches)]
+        log(f"dba-eval {H}x{W}: rendered in {time.perf_counter() - t0:.1f} "
+            "s (host)")
+        for path in ckpts:
+            model = load_selftrained(path, device=dev)
+            t0 = time.perf_counter()
+            loss, ate = [], []
+            with torch.no_grad():
+                for b in batches:
+                    ls, at = T.dba_batch_loss(model, *[t.to(dev) for t in b],
+                                              N=N, iters=iters)
+                    loss.append(float(ls.mean()))
+                    ate.append(float(at.mean()))
+            r = out.setdefault(path, {})[f"{H}x{W}"] = dict(
+                loss_mean=float(np.mean(loss)),
+                loss_median=float(np.median(loss)),
+                ate_mean=float(np.mean(ate)), ate_median=float(np.median(ate)),
+                ate_p10=float(np.percentile(ate, 10)),
+                ate_p90=float(np.percentile(ate, 90)))
+            log(f"dba-eval {path} {H}x{W} ({time.perf_counter() - t0:.1f} "
+                f"s): loss mean {r['loss_mean']:.5f} median "
+                f"{r['loss_median']:.5f}; ATE mean {r['ate_mean']:.5f} median "
+                f"{r['ate_median']:.5f} (p10 {r['ate_p10']:.5f}, p90 "
+                f"{r['ate_p90']:.5f})")
+            if not np.isfinite(loss + ate).all():
+                raise SystemExit(f"dba-eval {path} {H}x{W}: a loss or ATE "
+                                 "is not finite")
+            del model
+            torch.cuda.empty_cache()
+    log("dba-eval: " + json.dumps(out))
 
 
 def train_cli(argstr):
@@ -2282,6 +2415,12 @@ def main(argv=None):
     ap.add_argument("--judge-only", metavar="CKPT", default=None,
                     help="only the build, then the tools and smoke.yaml on "
                     "the shipped tracker checkpoint and on CKPT")
+    ap.add_argument("--judge-ref", metavar="REF", default=None,
+                    help="with --judge-only: the checkpoint CKPT is judged "
+                    "beside (default pretrained/droid_dba.msgpack)")
+    ap.add_argument("--dba-eval", metavar="CKPT", nargs="+", default=None,
+                    help="only the build, then each checkpoint through the "
+                    "DBA stage's loss with no update, at both buckets")
     ap.add_argument("--train-cli", metavar="ARGS", default=None,
                     help="only the build, then train_droid's main() on ARGS "
                     "(one string), timed step by step")
@@ -2328,12 +2467,17 @@ def main(argv=None):
             label, *window_input(slam, rows)))
 
     if args.train_only:
-        phase("trainer phase", trainer_phase, dev)
+        phase("trainer phase", trainer_phase, dev, both_buckets=True)
         check_pretrained()
         refuse_jax()
         return 0
     if args.judge_only:
-        judge_phase(args.judge_only, dev)
+        judge_phase(args.judge_only, dev, args.judge_ref)
+        check_pretrained()
+        refuse_jax()
+        return 0
+    if args.dba_eval:
+        phase("dba-eval", dba_eval, args.dba_eval, dev)
         check_pretrained()
         refuse_jax()
         return 0

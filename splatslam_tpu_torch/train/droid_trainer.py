@@ -26,9 +26,10 @@ packages agree on gradients and not only on values.
 Differences from the JAX file, on purpose:
   * the batch renderers return CPU tensors; the training loop uploads them
     (the worker threads never touch the device);
-  * `jax.vmap` over the scenes of a DBA batch is a loop: each scene's loss
-    is back-propagated on its own (divided by the batch), which sums to
-    the gradient of the mean and holds one scene's graph at a time;
+  * `jax.vmap` over the scenes of a DBA batch is one pass over the batch
+    as one graph (`dba_batch_loss`): the network and the correlation run
+    on the scenes' B·N frames and B·E edges, the solver on a leading scene
+    dimension;
   * `jax.checkpoint` of a round is `torch.utils.checkpoint`;
   * the parameters are a trainable DroidNet (models/weights.init_params),
     and the optimizer is `make_optimizer`, the exact counterpart of the
@@ -508,11 +509,12 @@ def make_seq_batch(rng: np.random.RandomState, batch: int, N: int,
             torch.as_tensor(np.asarray(intr_b, np.float32)))
 
 
-def dba_scene_loss(model, imgs, disps_gt, poses_gt, intr8, N: int = 7,
+def dba_batch_loss(model, imgs, disps_gt, poses_gt, intr8, N: int = 7,
                    iters: int = 8, gamma: float = 0.9, w_pose: float = 10.0,
                    w_disp: float = 0.05, w_flow: float = 0.05):
-    """The DBA stage's loss on ONE scene: (loss, ate), scalars carrying the
-    graph. imgs (N,H,W,3); disps_gt (N,h,w); poses_gt (N,7) w2c; intr8 (4,).
+    """The DBA stage's loss on B scenes in one pass: (losses (B,), ates
+    (B,)), each scene's scalars carrying the graph. imgs (B,N,H,W,3);
+    disps_gt (B,N,h,w); poses_gt (B,N,7) w2c; intr8 (B,4).
 
     Protocol (DROID-SLAM training): poses start at GT frame 0 (gauge fixed
     by freezing pose 0, t0 = 1), disparities at 1; each round runs the
@@ -520,50 +522,62 @@ def dba_scene_loss(model, imgs, disps_gt, poses_gt, intr8, N: int = 7,
     solver, so pose/depth gradients flow back into the delta/weight/eta
     heads. Supervision after every round: geodesic pose error, disparity
     L1 (pins the monocular scale) and flow-to-GT L1 on the round's
-    target."""
+    target.
+
+    The counterpart of `jax.vmap(scene_loss)`: the scenes form one graph of
+    B·N frames and B·E edges (scene b's frames offset by b·N, its
+    aggregation slots by b·Mk), so the encoders, the correlation and the
+    update operator run once per round for the whole batch, and `dba`
+    solves the scenes side by side, each in its own gauge."""
     dev = imgs.device
+    B = imgs.shape[0]
     ii_np, jj_np = seq_edges(N)
     edges = make_edges(ii_np, jj_np, t0=1, t1=N, device=dev)
-    ii, jj = edges.ii, edges.jj
     uniq, inv = np.unique(ii_np, return_inverse=True)
-    ix = torch.as_tensor(inv.astype(np.int64), device=dev)
     Mk = len(uniq)   # == N for a neighborhood graph
     E = len(ii_np)
+    scene = torch.arange(B, device=dev)[:, None]
+    ii_b = (edges.ii + scene * N).reshape(-1)
+    jj_b = (edges.jj + scene * N).reshape(-1)
+    ix = (torch.as_tensor(inv.astype(np.int64), device=dev)
+          + scene * Mk).reshape(-1)
 
     h, w = disps_gt.shape[-2:]
     coords0 = pops.coords_grid(h, w, device=dev)
-    x = normalize_images(imgs)
+    x = normalize_images(imgs.reshape(B * N, *imgs.shape[2:]))
     fmaps = model.features(x)
     cn, ci = model.context(x)
     pyr = corr_ops.build_fmap_pyramid(fmaps.float(), 4)
 
-    intr_t = intr8.expand(N, 4)
+    intr_t = intr8[:, None].expand(B, N, 4)
     flow_gt, valid_gt = pops.projective_transform(
-        poses_gt[None], disps_gt[None], intr_t[None], ii, jj)
-    flow_gt, valid_gt = flow_gt[0], valid_gt[0][..., 0]
+        poses_gt, disps_gt, intr_t, edges.ii, edges.jj)
+    valid_gt = valid_gt[..., 0]
 
-    poses = poses_gt[0].expand(N, 7)
-    disps = torch.ones(N, h, w, device=dev)
-    net = cn[ii]
-    inp = ci[ii]
-    target = coords0.expand(E, h, w, 2)
+    poses = poses_gt[:, :1].expand(B, N, 7)
+    disps = torch.ones(B, N, h, w, device=dev)
+    net = cn[ii_b]
+    inp = ci[ii_b]
+    target = coords0.expand(B, E, h, w, 2)
     zeros_sens = torch.zeros_like(disps)
+    edge_major = lambda t: t.reshape(B * E, h, w, -1).permute(0, 3, 1, 2)
+    scene_major = lambda t: t.permute(0, 2, 3, 1).reshape(B, E, h, w, -1)
 
     def round_body(poses, disps, net, target):
-        coords1, _ = pops.projective_transform(
-            poses[None], disps[None], intr_t[None], ii, jj)
-        coords1 = coords1[0]
-        corr = corr_ops.alt_corr(pyr, ii, jj, coords1)
+        coords1, _ = pops.projective_transform(poses, disps, intr_t,
+                                               edges.ii, edges.jj)
+        corr = corr_ops.alt_corr(pyr, ii_b, jj_b,
+                                 coords1.reshape(B * E, h, w, 2))
         motn = _clip(torch.cat([coords1 - coords0, target - coords1], -1),
                      -64.0, 64.0)
         net, delta, weight = model.update_step(net, inp, corr,
-                                               motn.permute(0, 3, 1, 2))
-        target = coords1 + delta.permute(0, 2, 3, 1).float()
-        eta_agg, _ = model.update_agg(net, ix, Mk)
-        eta = 0.2 * eta_agg[edges.kx] + 1e-7
+                                               edge_major(motn))
+        target = coords1 + scene_major(delta).float()
+        eta_agg, _ = model.update_agg(net, ix, B * Mk)
+        eta = 0.2 * eta_agg.reshape(B, Mk, h, w)[:, edges.kx] + 1e-7
         poses, disps = dba(poses, disps, intr8, target,
-                           weight.permute(0, 2, 3, 1).float(), eta,
-                           zeros_sens, edges, iters=2)
+                           scene_major(weight).float(), eta, zeros_sens,
+                           edges, iters=2)
         return poses, disps, net, target
 
     total = 0.0
@@ -573,40 +587,50 @@ def dba_scene_loss(model, imgs, disps_gt, poses_gt, intr8, N: int = 7,
         poses, disps, net, target = checkpoint(
             round_body, poses, disps, net, target, use_reentrant=False)
         # geodesic pose error on the optimised frames
-        derr = lie.log(lie.mul(poses[1:], lie.inv(poses_gt[1:])))
-        pose_err = _abs(derr).mean()
-        disp_err = _abs(disps - disps_gt).mean()
-        flow_err = (_abs(target - flow_gt) * valid_gt[..., None]).mean()
+        derr = lie.log(lie.mul(poses[:, 1:], lie.inv(poses_gt[:, 1:])))
+        pose_err = _abs(derr).mean((1, 2))
+        disp_err = _abs(disps - disps_gt).mean((1, 2, 3))
+        flow_err = (_abs(target - flow_gt)
+                    * valid_gt[..., None]).mean((1, 2, 3, 4))
         g = gamma ** (iters - k - 1)
         total = total + g * (w_pose * pose_err + w_disp * disp_err
                              + w_flow * flow_err)
     ate = torch.linalg.norm(
-        lie.to_matrix(lie.inv(poses))[:, :3, 3]
-        - lie.to_matrix(lie.inv(poses_gt))[:, :3, 3], dim=-1).mean()
+        lie.to_matrix(lie.inv(poses))[..., :3, 3]
+        - lie.to_matrix(lie.inv(poses_gt))[..., :3, 3], dim=-1).mean(-1)
     return total, ate
+
+
+def dba_scene_loss(model, imgs, disps_gt, poses_gt, intr8, N: int = 7,
+                   iters: int = 8, gamma: float = 0.9, w_pose: float = 10.0,
+                   w_disp: float = 0.05, w_flow: float = 0.05):
+    """dba_batch_loss on ONE scene: (loss, ate), scalars carrying the
+    graph. imgs (N,H,W,3); disps_gt (N,h,w); poses_gt (N,7) w2c; intr8
+    (4,)."""
+    loss, ate = dba_batch_loss(model, imgs[None], disps_gt[None],
+                               poses_gt[None], intr8[None], N, iters, gamma,
+                               w_pose, w_disp, w_flow)
+    return loss[0], ate[0]
 
 
 def make_dba_train_step(model, opt, N: int = 7, iters: int = 8,
                         gamma: float = 0.9, w_pose: float = 10.0,
                         w_disp: float = 0.05, w_flow: float = 0.05):
     """The DBA stage's step: one update of `model` by `opt` on a batch
-    (imgs, disps_gt, poses_gt, intr8) of B scenes. The loss is the mean of
-    the scenes' (dba_scene_loss); each scene is back-propagated on its own.
+    (imgs, disps_gt, poses_gt, intr8) of B scenes: one forward over the
+    batch (dba_batch_loss), the mean of the scenes' losses, one backward.
     Returns dict(loss, ate, gnorm) as 0-dim tensors."""
 
     def train_step(imgs, disps_gt, poses_gt, intr8):
         opt.zero_grad()
-        B = imgs.shape[0]
-        loss = ate = 0.0
-        for b in range(B):
-            ls, at = dba_scene_loss(model, imgs[b], disps_gt[b], poses_gt[b],
-                                    intr8[b], N, iters, gamma, w_pose,
-                                    w_disp, w_flow)
-            (ls / B).backward()
-            loss = loss + ls.detach() / B
-            ate = ate + at.detach() / B
+        losses, ates = dba_batch_loss(model, imgs, disps_gt, poses_gt, intr8,
+                                      N, iters, gamma, w_pose, w_disp,
+                                      w_flow)
+        loss = losses.mean()
+        loss.backward()
         gnorm = opt.step()
-        return dict(loss=loss, ate=ate, gnorm=gnorm)
+        return dict(loss=loss.detach(), ate=ates.mean().detach(),
+                    gnorm=gnorm)
 
     return train_step
 

@@ -35,7 +35,7 @@ from . import gaussians as G
 from . import fusion
 from .camera import Camera, make_camera
 from .losses import mapping_loss, get_median_depth
-from ..utils.profiling import PhaseTimers
+from ..utils.profiling import PhaseTimers, span
 
 
 def _round_up(x, m):
@@ -166,110 +166,119 @@ def _step_shards(st, reps, shards, lrs, cam_lrs, step, iso_weight, *, H, W,
     and n_touched in row order), Adam steps the map once and the replicas
     are refreshed. Each shard's exposure and pose Adam rows are updated on
     its device, in place in its _Cams. Returns (radii (B,C), n_touched
-    (B,C), loss) on the map's device."""
-    dev0, C = st.device, st.capacity
-    t = float(step)
-    g_sum, loss, radii_l, nt_l = None, None, [], []
-    vis_sum = gnorm_sum = max_r = None
-    if not any(k == 0 for k, _ in shards):
-        # the isotropic term rides with shard 0; here it has no rows
-        s = st.scaling.detach().requires_grad_(True)
-        iso = _iso_loss(torch.exp(s), st.alive, iso_weight)
-        g_sum = {n: torch.zeros_like(getattr(st, n)) for n in G.PARAM_NAMES}
-        g_sum["scaling"] = torch.autograd.grad(iso, s)[0]
-        loss = iso.detach()
-    for k, c in shards:
-        src = st if k == 0 else reps[k - 1]
-        dev = src.xyz.device
-        B = c.w2cs.shape[0]
-        params = {n: getattr(src, n).detach().requires_grad_(True)
-                  for n in G.PARAM_NAMES}
-        exposure = c.exposure.detach().requires_grad_(True)
-        taus = torch.zeros((B, 6), device=dev, requires_grad=opt_poses)
-        dummy = torch.zeros((B, C, 2), device=dev, requires_grad=True)
+    (B,C), loss) on the map's device. Traced as the span `map.iter`, each
+    shard's render and loss as `map.fwd`, its gradient as `map.bwd`, the
+    statistics and Adam steps as one `map.adam`."""
+    with span("map.iter"):
+        dev0, C = st.device, st.capacity
+        t = float(step)
+        g_sum, loss, radii_l, nt_l = None, None, [], []
+        vis_sum = gnorm_sum = max_r = None
+        if not any(k == 0 for k, _ in shards):
+            # the isotropic term rides with shard 0; here it has no rows
+            s = st.scaling.detach().requires_grad_(True)
+            iso = _iso_loss(torch.exp(s), st.alive, iso_weight)
+            g_sum = {n: torch.zeros_like(getattr(st, n))
+                     for n in G.PARAM_NAMES}
+            g_sum["scaling"] = torch.autograd.grad(iso, s)[0]
+            loss = iso.detach()
+        rendered = []
+        for k, c in shards:
+            src = st if k == 0 else reps[k - 1]
+            dev = src.xyz.device
+            with span("map.fwd"):
+                B = c.w2cs.shape[0]
+                params = {n: getattr(src, n).detach().requires_grad_(True)
+                          for n in G.PARAM_NAMES}
+                exposure = c.exposure.detach().requires_grad_(True)
+                taus = torch.zeros((B, 6), device=dev, requires_grad=opt_poses)
+                dummy = torch.zeros((B, C, 2), device=dev, requires_grad=True)
 
-        opac = torch.sigmoid(params["opacity"])[:, 0]
-        scal = torch.exp(params["scaling"])
-        cols = _colors(params["f_dc"], params["f_rest"], params["xyz"],
-                       c.w2cs, sh_degree)
-        out = rz.rasterize_batch(
-            params["xyz"], scal, params["rotation"], opac, cols, src.alive,
-            c.w2cs, taus, c.intrinsics, torch.zeros(3, device=dev),
-            means2d_dummy=dummy, tile_ids=c.tile_ids,
-            tile_counts=c.tile_counts, H=H, W=W, K=K,
-            want_touched=want_touched, max_span=max_span)
-        ue = c.use_exposure[:, None, None, None]
-        image_ab = torch.where(
-            ue, torch.exp(exposure[:, 0, None, None, None]) * out.color
-            + exposure[:, 1, None, None, None], out.color)
-        per_cam = mapping_loss(image_ab, out.depth, c.images, c.depths,
-                               alpha=alpha, use_ssim=use_ssim)
-        total = torch.where(c.cam_valid, per_cam,
-                            torch.zeros_like(per_cam)).sum()
-        if k == 0:
-            total = total + _iso_loss(scal, src.alive, iso_weight)
+                opac = torch.sigmoid(params["opacity"])[:, 0]
+                scal = torch.exp(params["scaling"])
+                cols = _colors(params["f_dc"], params["f_rest"], params["xyz"],
+                               c.w2cs, sh_degree)
+                out = rz.rasterize_batch(
+                    params["xyz"], scal, params["rotation"], opac, cols,
+                    src.alive, c.w2cs, taus, c.intrinsics,
+                    torch.zeros(3, device=dev), means2d_dummy=dummy,
+                    tile_ids=c.tile_ids, tile_counts=c.tile_counts, H=H, W=W,
+                    K=K, want_touched=want_touched, max_span=max_span)
+                ue = c.use_exposure[:, None, None, None]
+                image_ab = torch.where(
+                    ue, torch.exp(exposure[:, 0, None, None, None]) * out.color
+                    + exposure[:, 1, None, None, None], out.color)
+                per_cam = mapping_loss(image_ab, out.depth, c.images, c.depths,
+                                       alpha=alpha, use_ssim=use_ssim)
+                total = torch.where(c.cam_valid, per_cam,
+                                    torch.zeros_like(per_cam)).sum()
+                if k == 0:
+                    total = total + _iso_loss(scal, src.alive, iso_weight)
 
-        leaves = [params[n] for n in G.PARAM_NAMES] + [exposure, dummy]
-        if opt_poses:
-            leaves.append(taus)
-        grads = torch.autograd.grad(total, leaves, allow_unused=True)
-        grads = [torch.zeros_like(x) if g is None else g
-                 for x, g in zip(leaves, grads)]
-        g_expo, g_dummy = grads[len(G.PARAM_NAMES):len(G.PARAM_NAMES) + 2]
+            with span("map.bwd"):
+                leaves = [params[n] for n in G.PARAM_NAMES] + [exposure, dummy]
+                if opt_poses:
+                    leaves.append(taus)
+                grads = torch.autograd.grad(total, leaves, allow_unused=True)
+                grads = [torch.zeros_like(x) if g is None else g
+                         for x, g in zip(leaves, grads)]
+            rendered.append((c, dev, out, total, exposure, grads))
 
-        with torch.no_grad():
-            g_p = dict(zip(G.PARAM_NAMES, grads[:len(G.PARAM_NAMES)]))
-            if g_sum is None:
-                g_sum = g_p
-            else:
-                g_sum = {n: g_sum[n] + g_p[n].to(dev0) for n in g_sum}
-            loss = total.detach().to(dev0) if loss is None \
-                else loss + total.detach().to(dev0)
-            radii = out.radii * c.cam_valid[:, None]
-            radii_l.append(radii.to(dev0))
-            nt_l.append((out.n_touched * c.cam_valid[:, None]).to(dev0))
-            # densification statistics: screen-space gradient norms over
-            # the cameras that see each Gaussian (mapper.py:522-529)
-            vis_any = radii > 0
-            gn = (torch.linalg.norm(g_dummy, dim=-1) * vis_any).sum(0)
-            vs = vis_any.sum(0).float()
-            mr = (radii * vis_any).max(0).values
-            gnorm_sum = gn.to(dev0) if gnorm_sum is None \
-                else gnorm_sum + gn.to(dev0)
-            vis_sum = vs.to(dev0) if vis_sum is None \
-                else vis_sum + vs.to(dev0)
-            max_r = mr.to(dev0) if max_r is None \
-                else torch.maximum(max_r, mr.to(dev0))
+        P = len(G.PARAM_NAMES)
+        with span("map.adam"), torch.no_grad():
+            for c, dev, out, total, exposure, grads in rendered:
+                g_expo, g_dummy = grads[P:P + 2]
+                g_p = dict(zip(G.PARAM_NAMES, grads[:P]))
+                if g_sum is None:
+                    g_sum = g_p
+                else:
+                    g_sum = {n: g_sum[n] + g_p[n].to(dev0) for n in g_sum}
+                loss = total.detach().to(dev0) if loss is None \
+                    else loss + total.detach().to(dev0)
+                radii = out.radii * c.cam_valid[:, None]
+                radii_l.append(radii.to(dev0))
+                nt_l.append((out.n_touched * c.cam_valid[:, None]).to(dev0))
+                # densification statistics: screen-space gradient norms over
+                # the cameras that see each Gaussian (mapper.py:522-529)
+                vis_any = radii > 0
+                gn = (torch.linalg.norm(g_dummy, dim=-1) * vis_any).sum(0)
+                vs = vis_any.sum(0).float()
+                mr = (radii * vis_any).max(0).values
+                gnorm_sum = gn.to(dev0) if gnorm_sum is None \
+                    else gnorm_sum + gn.to(dev0)
+                vis_sum = vs.to(dev0) if vis_sum is None \
+                    else vis_sum + vs.to(dev0)
+                max_r = mr.to(dev0) if max_r is None \
+                    else torch.maximum(max_r, mr.to(dev0))
 
-            ge = g_expo * (c.use_exposure & c.cam_valid)[:, None]
-            c.em = 0.9 * c.em + 0.1 * ge
-            c.ev = 0.999 * c.ev + 0.001 * ge * ge
-            c.exposure = exposure.detach() - 0.01 * (
-                c.em / (1 - 0.9 ** t)) / (
-                torch.sqrt(c.ev / (1 - 0.999 ** t)) + 1e-8)
-            if opt_poses:
-                pm = (c.opt_pose_mask & c.cam_valid)[:, None]
-                gt_ = grads[-1] * pm
-                c.tm = 0.9 * c.tm + 0.1 * gt_
-                c.tv = 0.999 * c.tv + 0.001 * gt_ * gt_
-                lr_vec = torch.tensor([cam_lrs[0]] * 3 + [cam_lrs[1]] * 3,
-                                      device=dev)
-                upd = lr_vec * (c.tm / (1 - 0.9 ** t)) / (
-                    torch.sqrt(c.tv / (1 - 0.999 ** t)) + 1e-8)
-                new_tau = torch.where(pm, -upd, torch.zeros_like(upd))
-                dT = lie.to_matrix(lie.exp(new_tau))
-                c.w2cs = torch.where(pm[:, :, None], dT @ c.w2cs, c.w2cs)
+                ge = g_expo * (c.use_exposure & c.cam_valid)[:, None]
+                c.em = 0.9 * c.em + 0.1 * ge
+                c.ev = 0.999 * c.ev + 0.001 * ge * ge
+                c.exposure = exposure.detach() - 0.01 * (
+                    c.em / (1 - 0.9 ** t)) / (
+                    torch.sqrt(c.ev / (1 - 0.999 ** t)) + 1e-8)
+                if opt_poses:
+                    pm = (c.opt_pose_mask & c.cam_valid)[:, None]
+                    gt_ = grads[-1] * pm
+                    c.tm = 0.9 * c.tm + 0.1 * gt_
+                    c.tv = 0.999 * c.tv + 0.001 * gt_ * gt_
+                    lr_vec = torch.tensor([cam_lrs[0]] * 3 + [cam_lrs[1]] * 3,
+                                          device=dev)
+                    upd = lr_vec * (c.tm / (1 - 0.9 ** t)) / (
+                        torch.sqrt(c.tv / (1 - 0.999 ** t)) + 1e-8)
+                    new_tau = torch.where(pm, -upd, torch.zeros_like(upd))
+                    dT = lie.to_matrix(lie.exp(new_tau))
+                    c.w2cs = torch.where(pm[:, :, None], dT @ c.w2cs, c.w2cs)
 
-    with torch.no_grad():
-        st.grad_accum += gnorm_sum
-        st.denom += vis_sum
-        st.max_radii2D = torch.maximum(st.max_radii2D, max_r)
-        G.adam_step(st, g_sum, lrs, step)
-        for rep in reps:
-            for n in G.PARAM_NAMES:
-                getattr(rep, n).copy_(getattr(st, n), non_blocking=True)
-    cat = lambda xs: xs[0] if len(xs) == 1 else torch.cat(xs)
-    return cat(radii_l), cat(nt_l), loss
+            st.grad_accum += gnorm_sum
+            st.denom += vis_sum
+            st.max_radii2D = torch.maximum(st.max_radii2D, max_r)
+            G.adam_step(st, g_sum, lrs, step)
+            for rep in reps:
+                for n in G.PARAM_NAMES:
+                    getattr(rep, n).copy_(getattr(st, n), non_blocking=True)
+        cat = lambda xs: xs[0] if len(xs) == 1 else torch.cat(xs)
+        return cat(radii_l), cat(nt_l), loss
 
 
 def map_step(st: G.GaussianState, exp_state, tau_state, w2cs, images,
@@ -358,8 +367,9 @@ def map_step_n(st, exp_state, tau_state, w2cs, images, depths, exposure,
         for i in range(n_iters):
             k, c, r = rows[i]
             one = c.rows(slice(r, r + 1))
-            one.tile_ids, one.tile_counts = _rebin(
-                src(k), one.w2cs, one.intrinsics, margin=0.0, **bin_kw)
+            with span("map.bin"):
+                one.tile_ids, one.tile_counts = _rebin(
+                    src(k), one.w2cs, one.intrinsics, margin=0.0, **bin_kw)
             step = step0 + i
             radii, n_touched, loss = _step_shards(
                 st, reps, [(k, one)], lrs_at(step), cam_lrs, step + 1,
@@ -368,10 +378,11 @@ def map_step_n(st, exp_state, tau_state, w2cs, images, depths, exposure,
     else:
         for i in range(n_iters - 1):
             if i % rebin_every == 0:
-                for k, c in shards:
-                    c.tile_ids, c.tile_counts = _rebin(
-                        src(k), c.w2cs, c.intrinsics, margin=rebin_margin,
-                        **bin_kw)
+                with span("map.bin"):
+                    for k, c in shards:
+                        c.tile_ids, c.tile_counts = _rebin(
+                            src(k), c.w2cs, c.intrinsics,
+                            margin=rebin_margin, **bin_kw)
             step = step0 + i
             _step_shards(st, reps, shards, lrs_at(step), cam_lrs, step + 1,
                          iso_weight, want_touched=False, **kw)
@@ -679,33 +690,35 @@ class Mapper:
                 self._handle_host_events(densify_cfg, n_touched)
         if (store_expo or persist_exp_state or (opt_poses and n_opt)
                 or densify_cfg is not None):
-            # one read for the alive bound and Σ n_touched of the last
-            # iteration (the JAX package's packed pull, mapper.py:127-135)
-            alive = self.st.alive.sum()
-            blend = alive * 0 if last is None else last[1].sum()
-            alive, blend = torch.stack([alive, blend]).tolist()
-            self._alive_ub = int(alive)
-            # JAX mapper.py:960-968, per iteration: ≈ 110 F per blend pair
-            # (forward ≈ 30, backward ≈ 80), ≈ 500 F of projection forward
-            # and backward per (camera, Gaussian) row, and the loss ≈
-            # 1.5 kF (SSIM) or 200 F per (camera, pixel)
-            loss_f = 1500.0 if self.use_ssim else 200.0
-            self.video.flops_mapping += float(iters) * (
-                float(blend) * 110.0 + B * self.st.capacity * 500.0
-                + B * self.H * self.W * loss_f)
-            expo_np = expo.cpu().numpy()
-            if store_expo:
-                for i, c in enumerate(cams):
-                    self.exp_ab[c.uid] = expo_np[i]
-            if persist_exp_state:
-                mv = torch.stack([exp_m, exp_v], 1).cpu().numpy()
-                for i, c in enumerate(cams):
-                    self.exp_mv[c.uid] = mv[i]
-            if n_opt:
-                w2c_np = w2cs.cpu().numpy()
-                for i, c in enumerate(cams):
-                    if pose_mask_host[i]:
-                        c.w2c = w2c_np[i].copy()
+            with self.timers("map.pull"):
+                # one read for the alive bound and Σ n_touched of the
+                # last iteration (the JAX package's packed pull,
+                # mapper.py:127-135)
+                alive = self.st.alive.sum()
+                blend = alive * 0 if last is None else last[1].sum()
+                alive, blend = torch.stack([alive, blend]).tolist()
+                self._alive_ub = int(alive)
+                # JAX mapper.py:960-968, per iteration: ≈ 110 F per blend
+                # pair (forward ≈ 30, backward ≈ 80), ≈ 500 F of projection
+                # forward and backward per (camera, Gaussian) row, and the
+                # loss ≈ 1.5 kF (SSIM) or 200 F per (camera, pixel)
+                loss_f = 1500.0 if self.use_ssim else 200.0
+                self.video.flops_mapping += float(iters) * (
+                    float(blend) * 110.0 + B * self.st.capacity * 500.0
+                    + B * self.H * self.W * loss_f)
+                expo_np = expo.cpu().numpy()
+                if store_expo:
+                    for i, c in enumerate(cams):
+                        self.exp_ab[c.uid] = expo_np[i]
+                if persist_exp_state:
+                    mv = torch.stack([exp_m, exp_v], 1).cpu().numpy()
+                    for i, c in enumerate(cams):
+                        self.exp_mv[c.uid] = mv[i]
+                if n_opt:
+                    w2c_np = w2cs.cpu().numpy()
+                    for i, c in enumerate(cams):
+                        if pose_mask_host[i]:
+                            c.w2c = w2c_np[i].copy()
         self._last_w2cs = (tuple(c.uid for c in cams), w2cs)
         return last
 
@@ -713,18 +726,19 @@ class Mapper:
     def _handle_host_events(self, d, n_touched):
         """Densify/prune and opacity resets at gate iterations (the `elif`
         structure of mapper.py:531-556)."""
-        it = self.iteration_count
-        if d.get("update_every") and \
-                it % d["update_every"] == d.get("update_offset", 0):
-            self.st = G.densify_and_prune(
-                self.st, self.opt["densify_grad_threshold"], d["th"],
-                d["extent"], d["size_threshold"], self.opt["percent_dense"],
-                generator=self.gen)
-        elif d.get("reset_every") and it % d["reset_every"] == 0:
-            vis_any = (n_touched[:d["n_window"]] > 0).any(0)
-            self.st = G.reset_opacity_nonvisible(self.st, vis_any)
-        if it in d.get("reset_at", ()):
-            self.st = G.reset_opacity(self.st)
+        with self.timers("map.densify"):
+            it = self.iteration_count
+            if d.get("update_every") and \
+                    it % d["update_every"] == d.get("update_offset", 0):
+                self.st = G.densify_and_prune(
+                    self.st, self.opt["densify_grad_threshold"], d["th"],
+                    d["extent"], d["size_threshold"],
+                    self.opt["percent_dense"], generator=self.gen)
+            elif d.get("reset_every") and it % d["reset_every"] == 0:
+                vis_any = (n_touched[:d["n_window"]] > 0).any(0)
+                self.st = G.reset_opacity_nonvisible(self.st, vis_any)
+            if it in d.get("reset_at", ()):
+                self.st = G.reset_opacity(self.st)
 
     def initialize_map(self, video_idx, cam: Camera):
         """First-keyframe optimisation (mapper.py:303-398)."""

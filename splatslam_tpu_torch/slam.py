@@ -38,6 +38,7 @@ from .mapping.gaussians import save_ply
 from .utils.printer import Printer, FontColor
 from .utils.eval_traj import kf_traj_eval, full_traj_eval
 from .utils.eval_render import eval_rendering, eval_mesh
+from .utils import profiling
 from .utils.profiling import PhaseTimers, device_trace
 
 
@@ -78,6 +79,7 @@ class SLAM:
         self.every_kf = cfg["mapping"]["every_keyframe"]
         self.global_scale = 1.0
         self.timers = PhaseTimers(self.device)
+        profiling.set_current(self.timers)     # for the spans
         if self.mapper is not None:
             self.mapper.timers = self.timers
         self.frontend.timers = self.timers

@@ -5,6 +5,7 @@ FactorGraph over the keyframe history with proximity/loop edges."""
 
 from __future__ import annotations
 
+from ..utils.profiling import span
 from .factor_graph import FactorGraph
 
 
@@ -29,9 +30,10 @@ class Backend:
            enable_wq=True):
         if t_start_loop is None or not loop:
             t_start_loop = t_start
-        edge_num = graph.add_backend_proximity_factors(
-            t_start, t_end, nms, radius, thresh, max_factors, self.beta,
-            t_start_loop, loop)
+        with span("lc.edges"):
+            edge_num = graph.add_backend_proximity_factors(
+                t_start, t_end, nms, radius, thresh, max_factors, self.beta,
+                t_start_loop, loop)
         if edge_num == 0:
             graph.clear_edges()
             return 0

@@ -27,6 +27,7 @@ from ..ops import corr as corr_ops
 from ..ops import projective as pops
 from .depth_video import (reproject, depth_filter, frame_distance, nanmedian)
 from ..ops.upsample import upsample_disp, upsample_disp_uniform
+from ..utils.profiling import span, tally
 
 # bytes of level-0 correlation volume (N·(h·w)²·4) one alt_corr call may hold
 CORR_CHUNK_BYTES = 256 << 20
@@ -299,79 +300,48 @@ class FactorGraph:
         s = v.state
         if v.BA_type != "DSPO":
             opt_types = tuple("pose_depth" for _ in opt_types)
-        if t0 is None:
-            t0 = max(1, int(self.ii.min()) + 1)
-        ii_in, jj_in, t_in, w_in = self._inactive(t0, use_inactive)
-        if t1 is None:
-            t1 = int(max(self.ii.max(), self.jj.max(),
-                         ii_in.max() if len(ii_in) else 0,
-                         jj_in.max() if len(jj_in) else 0)) + 1
-        edges = ba_ops.make_edges(np.concatenate([self.ii, ii_in]),
-                                  np.concatenate([self.jj, jj_in]),
-                                  int(t0), int(t1), self.device)
+        with span("fe.setup"):
+            if t0 is None:
+                t0 = max(1, int(self.ii.min()) + 1)
+            ii_in, jj_in, t_in, w_in = self._inactive(t0, use_inactive)
+            if t1 is None:
+                t1 = int(max(self.ii.max(), self.jj.max(),
+                             ii_in.max() if len(ii_in) else 0,
+                             jj_in.max() if len(jj_in) else 0)) + 1
+            n_edges = len(self.ii) + len(ii_in)
+            edges = ba_ops.make_edges(np.concatenate([self.ii, ii_in]),
+                                      np.concatenate([self.jj, jj_in]),
+                                      int(t0), int(t1), self.device)
+            upmask = None
+            if self.oracle:
+                self.target, self.weight = self._oracle_targets()
+            else:
+                pyramid = self._pyramid()
         mv_cfg = v.cfg["tracking"]["multiview_filter"]
         intr = v.intr0
 
-        upmask = None
-        if self.oracle:
-            self.target, self.weight = self._oracle_targets()
-        else:
-            pyramid = self._pyramid()
-
         poses, disps = s.poses, s.disps
         for opt_type in opt_types:
-            if not self.oracle:
-                _, upmask = self._learned_update(poses, disps, pyramid)
-            target_all = torch.cat([self.target, t_in])
-            weight_all = torch.cat([self.weight, w_in])
-            eta = 0.2 * self.damping_maps[edges.kx] + EP
-            if opt_type != "depth_scale":
-                poses, disps = ba_ops.dba(
-                    poses, disps, intr, target_all, weight_all, eta,
-                    torch.zeros_like(disps), edges, iters=2)
-                continue
-            # stage-2: refresh the multiview mask + (w, q) init for the
-            # touched frames (depth_video.py:236-251 semantics)
-            kx = edges.kx
-            d_kx = disps[kx]
-            depths = 1.0 / torch.clamp(d_kx, min=1e-8)
-            thr = mv_cfg["thresh"] * depths.mean(dim=(1, 2))
-            count = depth_filter(poses, disps, intr, kx, thr)
-            mv = count >= mv_cfg["visible_num"]
-            med = nanmedian(torch.where(
-                mv, depths, torch.full_like(depths, float("nan"))
-            ).reshape(len(kx), -1))
-            s.valid_depth_mask_small[kx] = mv & (
-                depths < 3 * med[:, None, None])
-            sc, sh, _ = ba_ops.align_scale_and_shift(
-                s.mono_disps[kx], d_kx, s.valid_depth_mask_small[kx])
-            s.depth_scale[kx] = sc
-            s.depth_shift[kx] = sh
-            w2, kx_mask = weight_all, None
-            if v.mono_thres:
-                # bad-mono edges dropped as a zero weight; frames left with
-                # no kept edge are frozen (unless inside [t0, t1)); if
-                # every edge drops the round falls back to stage 1
-                bad = ba_ops.bad_mono_frames(
-                    s.mono_disps, disps, s.valid_depth_mask_small,
-                    float(v.mono_thres))
-                keep_e = ~bad[edges.ii] & ~bad[edges.jj]
-                if not bool(keep_e.any()):
-                    poses, disps = ba_ops.dba(
-                        poses, disps, intr, target_all, weight_all, eta,
-                        torch.zeros_like(disps), edges, iters=2)
-                    continue
-                kept = torch.zeros(edges.M, device=self.device).index_add_(
-                    0, edges.kk, keep_e.float()) > 0
-                kx_mask = kept | (kx >= edges.t0)
-                w2 = weight_all * keep_e[:, None, None, None]
-            for _ in range(2):
-                disps, s.depth_scale, s.depth_shift = \
-                    ba_ops._scale_shift_iteration(
-                        poses, disps, intr, target_all, w2, eta,
-                        s.mono_disps, s.depth_scale, s.depth_shift,
-                        s.valid_depth_mask_small, edges, 1e-4, 0.1, 0.01,
-                        kx_mask=kx_mask)
+            with span("fe.round"):
+                tally("n.edges", n_edges)
+                if not self.oracle:
+                    with span("fe.update"):
+                        _, upmask = self._learned_update(poses, disps,
+                                                         pyramid)
+                target_all = torch.cat([self.target, t_in])
+                weight_all = torch.cat([self.weight, w_in])
+                eta = 0.2 * self.damping_maps[edges.kx] + EP
+                stage1 = opt_type != "depth_scale"
+                if not stage1:
+                    with span("fe.dspo"):
+                        stage1, disps = self._dspo_round(
+                            poses, disps, edges, target_all, weight_all,
+                            eta, mv_cfg)
+                if stage1:
+                    with span("fe.dba"):
+                        poses, disps = ba_ops.dba(
+                            poses, disps, intr, target_all, weight_all, eta,
+                            torch.zeros_like(disps), edges, iters=2)
         s.poses, s.disps = poses, disps
 
         if upsample and self.upsample_flag:
@@ -382,16 +352,66 @@ class FactorGraph:
         # reprojection ≈ 2 kF; DBA ≈ 1.5 kF per plan edge-pixel and
         # Gauss-Newton iteration, 2 iterations a round
         px = self.h * self.w
-        n_edges = len(self.ii) + len(ii_in)
         per_round = (2e3 if self.oracle else 2.8e6) * n_edges * px \
             + 2 * 1.5e3 * edges.ii.shape[0] * px
         v.flops_tracking += per_round * len(opt_types)
         if cull_pair is None:
             return None
-        ci, cj = self._idx([cull_pair[0]]), self._idx([cull_pair[1]])
-        return float(0.5 * (
-            frame_distance(poses, disps, intr, ci, cj, cull_beta)
-            + frame_distance(poses, disps, intr, cj, ci, cull_beta))[0])
+        with span("fe.cull"):
+            ci = self._idx([cull_pair[0]])
+            cj = self._idx([cull_pair[1]])
+            return float(0.5 * (
+                frame_distance(poses, disps, intr, ci, cj, cull_beta)
+                + frame_distance(poses, disps, intr, cj, ci, cull_beta))[0])
+
+    def _dspo_round(self, poses, disps, edges, target_all, weight_all, eta,
+                    mv_cfg):
+        """A stage-2 round: refresh the multiview mask and the (w, q)
+        init of the touched frames (depth_video.py:236-251 semantics), then
+        two scale/shift iterations. Returns (fall_back, disps): fall_back
+        when every edge is dropped as bad-mono, the round then being a
+        stage-1 one."""
+        v = self.video
+        s = v.state
+        intr = v.intr0
+        kx = edges.kx
+        d_kx = disps[kx]
+        depths = 1.0 / torch.clamp(d_kx, min=1e-8)
+        thr = mv_cfg["thresh"] * depths.mean(dim=(1, 2))
+        count = depth_filter(poses, disps, intr, kx, thr)
+        mv = count >= mv_cfg["visible_num"]
+        med = nanmedian(torch.where(
+            mv, depths, torch.full_like(depths, float("nan"))
+        ).reshape(len(kx), -1))
+        s.valid_depth_mask_small[kx] = mv & (
+            depths < 3 * med[:, None, None])
+        sc, sh, _ = ba_ops.align_scale_and_shift(
+            s.mono_disps[kx], d_kx, s.valid_depth_mask_small[kx])
+        s.depth_scale[kx] = sc
+        s.depth_shift[kx] = sh
+        w2, kx_mask = weight_all, None
+        if v.mono_thres:
+            # bad-mono edges dropped as a zero weight; frames left with
+            # no kept edge are frozen (unless inside [t0, t1)); if
+            # every edge drops the round falls back to stage 1
+            bad = ba_ops.bad_mono_frames(
+                s.mono_disps, disps, s.valid_depth_mask_small,
+                float(v.mono_thres))
+            keep_e = ~bad[edges.ii] & ~bad[edges.jj]
+            if not bool(keep_e.any()):
+                return True, disps
+            kept = torch.zeros(edges.M, device=self.device).index_add_(
+                0, edges.kk, keep_e.float()) > 0
+            kx_mask = kept | (kx >= edges.t0)
+            w2 = weight_all * keep_e[:, None, None, None]
+        for _ in range(2):
+            disps, s.depth_scale, s.depth_shift = \
+                ba_ops._scale_shift_iteration(
+                    poses, disps, intr, target_all, w2, eta,
+                    s.mono_disps, s.depth_scale, s.depth_shift,
+                    s.valid_depth_mask_small, edges, 1e-4, 0.1, 0.01,
+                    kx_mask=kx_mask)
+        return False, disps
 
     @torch.no_grad()
     def update_rounds_motion_only(self, rounds, t0, t1):

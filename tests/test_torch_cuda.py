@@ -21,7 +21,9 @@ torch and the port only, so it runs on a GPU machine without jax:
   * the learned tracker in float32 (TF32 off) on the GPU against the CPU:
     one update_operator call on a 6-keyframe graph (atol 2e-4 / rtol 1e-3,
     the network parity tolerance) and one decide_batch chunk of 8 frames
-    (equal decisions, deltas within 5e-3).
+    (equal decisions, deltas within 5e-3);
+  * the tracer's host-sync counter: one count per synchronising call
+    while a profiler runs, none from the phases' own synchronisations.
 """
 
 import numpy as np
@@ -259,3 +261,32 @@ def test_decide_batch_gpu_matches_cpu():
     assert any(got["cpu"][0]) and not all(got["cpu"][0])
     np.testing.assert_allclose(got["cuda"][1], got["cpu"][1], atol=5e-3,
                                rtol=5e-3)
+
+
+@pytest.mark.cuda
+def test_sync_counter_counts_each_wait_while_profiled():
+    """The tracer's `n.sync`: torch warns once per synchronising call in
+    the sync debug mode, and each is counted where it happened, while a
+    profiler runs and not before or after; the phases' own
+    synchronisations are not counted."""
+    _need_cuda()
+    from torch.profiler import ProfilerActivity, profile
+    from splatslam_tpu_torch.utils.profiling import PhaseTimers
+    t = PhaseTimers("cuda")
+    x = torch.ones(64, device="cuda")
+    with t("frontend"):
+        x.sum().item()
+    assert "n.sync" not in t.total
+    with profile(activities=[ProfilerActivity.CUDA]):
+        with t("frontend"):
+            with t("fe.round"):
+                for _ in range(3):
+                    x.sum().item()
+            bool(x.any())
+            x.cpu()
+    with t("mapping"):
+        x.sum().item()
+    assert torch.cuda.get_sync_debug_mode() == 0
+    assert t.total["n.sync"] == 5, t.total
+    assert t.total["n.sync.fe.round"] == 3
+    assert t.total["n.sync.frontend"] == 2

@@ -5,8 +5,10 @@ timed phases and the operators under them; with the key unset nothing is
 traced. The counterpart of the JAX package's device_trace
 (splatslam_tpu/utils/profiling.py:74-82, slam.py:72,183)."""
 
+import contextlib
 import json
 import os
+import warnings
 
 import numpy as np
 import pytest
@@ -123,3 +125,211 @@ def test_trace_activities_follow_the_device(device, cuda, tmp_path,
     acts = torch.profiler.ProfilerActivity
     assert seen["acts"] == [acts.CPU] + ([acts.CUDA] if cuda else [])
     assert seen["path"] == str(tmp_path / "t" / profiling.TRACE_FILE)
+
+
+# -- the tracer: phases, spans and counters ----------------------------------
+
+def _stub_syncs(timers):
+    syncs = []
+    timers._sync = lambda: syncs.append(list(timers._open))
+    return syncs
+
+
+def test_a_phase_synchronises_at_both_edges_and_a_span_never():
+    t = profiling.PhaseTimers()
+    syncs = _stub_syncs(t)
+    with t("mapping"):
+        assert syncs == [[]]
+        with t("map.opt"):
+            for name in sorted(profiling.SPANS):
+                with t(name):
+                    pass
+            assert len(syncs) == 2
+    # entered before the phase opens and after it closes
+    assert syncs == [[], ["mapping"], ["mapping"], []]
+    assert all(t.count[n] == 1 for n in profiling.SPANS)
+    assert t.count["mapping"] == t.count["map.opt"] == 1
+    assert t.total["mapping"] >= t.total["map.opt"] > 0
+
+
+def test_record_function_only_while_a_profiler_runs(monkeypatch):
+    entered = []
+
+    @contextlib.contextmanager
+    def record(name):
+        entered.append(name)
+        yield
+
+    monkeypatch.setattr(torch.profiler, "record_function", record)
+    t = profiling.PhaseTimers()
+    with t("frontend"), t("fe.round"):
+        pass
+    assert entered == []
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]):
+        with t("frontend"), t("fe.round"):
+            pass
+    assert entered == ["frontend", "fe.round"]
+    with t("mapping"):
+        pass
+    assert entered == ["frontend", "fe.round"]
+
+
+def test_span_without_current_timers_is_a_no_op():
+    profiling.set_current(None)
+    with profiling.span("map.fwd"):
+        profiling.tally("n.edges", 3)
+    t = profiling.PhaseTimers()
+    profiling.set_current(t)
+    try:
+        with profiling.span("map.fwd"):
+            profiling.tally("n.edges", 3)
+        profiling.tally("n.edges", 4)
+    finally:
+        profiling.set_current(None)
+    assert t.count == {"map.fwd": 1, "n.edges": 2}
+    assert t.total["n.edges"] == 7
+    with pytest.raises(ValueError):
+        profiling.span("mapping")      # a phase synchronises: not a span
+
+
+def test_counters_are_reported_apart_from_seconds():
+    t = profiling.PhaseTimers()
+    t.add("frontend", 1.5)
+    t.tally("n.edges", 120)
+    t.tally("n.edges", 80)
+    phases, counters = t.report().split("\n\n")
+    assert "frontend" in phases and "n.edges" not in phases
+    assert "total_s" in phases.splitlines()[0]
+    head, row = counters.splitlines()
+    assert head.split() == ["counter", "total", "calls"]
+    assert row.split() == ["n.edges", "200", "2"]
+    assert "counter" not in profiling.PhaseTimers().report()
+
+
+def test_sync_warnings_are_counted_where_they_happen(monkeypatch):
+    """The counting itself, on the CPU: torch's per-sync warning stood in
+    by warnings.warn. Counted under the innermost open name while on,
+    other warnings passed on, nothing counted once off; a CPU run never
+    turns it on."""
+    modes = []
+    monkeypatch.setattr(torch.cuda, "set_sync_debug_mode", modes.append)
+    sync = profiling.SYNC_WARNING + " (Triggered internally at x.cpp:1.)"
+    t = profiling.PhaseTimers()
+    t._watch_syncs(True)
+    try:
+        with t("frontend"):
+            warnings.warn(sync)
+            with t("fe.round"):
+                warnings.warn(sync)
+                warnings.warn(sync)
+            with pytest.warns(DeprecationWarning):
+                warnings.warn("another", DeprecationWarning)
+        warnings.warn(sync)
+    finally:
+        t._watch_syncs(False)
+    assert modes == ["warn", 0]
+    assert t.total["n.sync"] == 4 and t.count["n.sync"] == 4
+    assert t.total["n.sync.fe.round"] == 2
+    assert t.total["n.sync.frontend"] == 1
+    assert t.total[f"n.sync.{profiling.OUTSIDE}"] == 1
+    with pytest.warns(UserWarning, match=profiling.SYNC_WARNING):
+        warnings.warn(sync)
+    assert t.total["n.sync"] == 4
+    from torch.profiler import ProfilerActivity, profile
+    cpu = profiling.PhaseTimers("cpu")
+    with profile(activities=[ProfilerActivity.CPU]):
+        with cpu("frontend"):
+            pass
+    assert cpu.total.get("n.sync", 0) == 0 and modes == ["warn", 0]
+
+
+def test_span_range_holds_the_profiler_events_launched_in_it():
+    """benchmark/trace.py stamps each phase and span with time.time_ns()
+    and compares the stamps with the profiler's: on the CPU, the events
+    an operator issues inside a span start inside its range, those before
+    and after outside it."""
+    from benchmark import probes, trace
+    t = profiling.PhaseTimers()
+    host = trace.HostRanges()
+    patches = probes.Patches()
+    host.install(patches)
+    host.active = True
+    x = torch.ones(256)
+    prof = trace.start("cpu")
+    try:
+        x - 1
+        with t("map.fwd"):
+            for _ in range(3):
+                x * 2
+        x / 2
+    finally:
+        trace.stop(prof)
+        patches.remove()
+    ((name, lo, hi),) = host.ranges
+    assert name == "map.fwd"
+    starts = {}
+    for e in prof.profiler.kineto_results.events():
+        starts.setdefault(e.name(), []).append(e.start_ns())
+    assert len(starts["aten::mul"]) == 3
+    assert all(lo <= s <= hi for s in starts["aten::mul"])
+    assert all(s < lo for s in starts["aten::sub"])
+    assert all(s > hi for s in starts["aten::div"])
+
+
+def test_spans_and_counters_of_a_slam_run(tmp_path, monkeypatch):
+    """A tiny oracle run with mapping: one `fe.round` a round run, the
+    edge counter the edges handed to the rounds, one `map.iter` a mapping
+    iteration; no span synchronises, so the phases' meaning stays."""
+    from splatslam_tpu_torch.mapping import mapper as mapper_mod
+    from splatslam_tpu_torch.ops import ba as ba_ops
+    from splatslam_tpu_torch.slam import SLAM
+    from splatslam_tpu_torch.tracking.factor_graph import FactorGraph
+    from test_torch_slam import _cfg as slam_cfg
+    monkeypatch.chdir(REPO)
+    rounds, edges, iters, inside = [], [], [], []
+    update_rounds = FactorGraph.update_rounds
+    make_edges = ba_ops.make_edges
+    step_shards = mapper_mod._step_shards
+
+    def counted_rounds(self, opt_types, *a, **kw):
+        if len(self.ii):
+            rounds.append(len(opt_types))
+        inside.append(True)
+        try:
+            return update_rounds(self, opt_types, *a, **kw)
+        finally:
+            inside.pop()
+
+    def counted_edges(ii, *a, **kw):
+        if inside and len(edges) < len(rounds):
+            edges.append(len(ii))
+        return make_edges(ii, *a, **kw)
+
+    def counted_iters(*a, **kw):
+        iters.append(1)
+        return step_shards(*a, **kw)
+
+    monkeypatch.setattr(FactorGraph, "update_rounds", counted_rounds)
+    monkeypatch.setattr(ba_ops, "make_edges", counted_edges)
+    monkeypatch.setattr(mapper_mod, "_step_shards", counted_iters)
+    cfg = slam_cfg(tmp_path / "out")
+    cfg["mapping"]["final_refine_iters"] = 8
+    slam = SLAM(cfg, device="cpu")
+    try:
+        res = slam.run()
+    finally:
+        profiling.set_current(None)
+    assert np.isfinite(res["ate_rmse"])
+    t = slam.timers
+    assert rounds and iters
+    assert t.count["fe.round"] == sum(rounds)
+    assert t.total["n.edges"] == sum(r * e for r, e in zip(rounds, edges))
+    assert t.count["n.edges"] == sum(rounds)
+    assert t.count["map.iter"] == t.count["map.fwd"] == len(iters)
+    assert t.count["map.adam"] == t.count["map.bwd"] == len(iters)
+    assert t.count["fe.setup"] == len(rounds)
+    assert t.count["map.bin"] > 0 and t.count["map.pull"] > 0
+    assert "fe.update" not in t.count      # oracle targets: no network
+    assert t.count["fe.dba"] + t.count.get("fe.dspo", 0) >= sum(rounds)
+    assert "n.sync" not in t.total

@@ -242,14 +242,42 @@ def grow_capacity(st: GaussianState, factor: int = 2) -> GaussianState:
 
 # -- Adam (torch.optim.Adam(eps=1e-15) semantics) ----------------------------
 
+def bias_corrections(step, b1=0.9, b2=0.999):
+    """Adam's bias corrections (1 - b1^t, 1 - b2^t) at the 1-based `step`
+    t, in double on the host."""
+    t = float(step)
+    return 1.0 - b1 ** t, 1.0 - b2 ** t
+
+
+def graph_factor(bc):
+    """The float32 reciprocal of a bias correction: what a CUDA kernel
+    multiplies a float32 tensor by when it divides it by the Python number
+    `bc`. A step captured in a CUDA graph reads it from device memory."""
+    return float(np.float32(1.0) / np.float32(bc))
+
+
+def unbias(x, bc):
+    """x over its bias correction: `bc` a number (bias_corrections), or a
+    0-d device tensor holding graph_factor(bc), so that a replayed step and
+    an eager one agree bit for bit on the card."""
+    return x * bc if torch.is_tensor(bc) else x / bc
+
+
 @torch.no_grad()
 def adam_step(st: GaussianState, grads: dict, lrs: dict, step,
               b1=0.9, b2=0.999, eps=1e-15):
     """One Adam step on all Gaussian parameters, IN PLACE. grads/lrs keyed
     by PARAM_NAMES; `step` is the 1-based step count (bias correction)."""
-    t = float(step)
-    bc1 = 1.0 - b1 ** t
-    bc2 = 1.0 - b2 ** t
+    return adam_update(st, grads, lrs, *bias_corrections(step, b1, b2), b1,
+                       b2, eps)
+
+
+@torch.no_grad()
+def adam_update(st, grads: dict, lrs: dict, bc1, bc2, b1=0.9, b2=0.999,
+                eps=1e-15):
+    """adam_step with its bias corrections given (unbias). The learning
+    rates and the corrections are numbers, or 0-d device tensors that a
+    step captured in a CUDA graph reads afresh at each replay."""
     for name in PARAM_NAMES:
         g = grads[name]
         g = torch.where(st.alive.reshape((-1,) + (1,) * (g.dim() - 1)), g,
@@ -258,8 +286,8 @@ def adam_step(st: GaussianState, grads: dict, lrs: dict, step,
         v = getattr(st, f"v_{name}")
         m.mul_(b1).add_((1 - b1) * g)
         v.mul_(b2).add_((1 - b2) * g * g)
-        getattr(st, name).sub_(lrs[name] * (m / bc1)
-                               / (torch.sqrt(v / bc2) + eps))
+        getattr(st, name).sub_(lrs[name] * unbias(m, bc1)
+                               / (torch.sqrt(unbias(v, bc2)) + eps))
     return st
 
 

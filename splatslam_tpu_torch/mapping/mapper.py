@@ -9,7 +9,10 @@ densify/prune/reset cadence. `map_step` renders every window camera in one
 batched rasterize_batch call (the compositor is the CUDA kernel pair on
 the GPU), backpropagates once and steps Adam in place; `map_step_n` is the
 Python loop over iterations with the tile-binning cadence of the JAX
-map_step_n.
+map_step_n. On one CUDA device, every iteration of a segment but its last
+replays CUDA graphs captured once per shape (_SplitStep), with B1 and B2
+launched eagerly between them; the last iteration, per-step cameras,
+several devices and the CPU run `_step_shards` as it is.
 
 With `mapping.mesh_devices: n` (and n devices visible) the camera rows of
 every segment are split over n devices, the counterpart of the JAX
@@ -35,7 +38,10 @@ from . import gaussians as G
 from . import fusion
 from .camera import Camera, make_camera
 from .losses import mapping_loss, get_median_depth
-from ..utils.profiling import PhaseTimers, span
+from ..utils.profiling import PhaseTimers, span, tally
+
+
+ISO_WEIGHT = 10.0     # the isotropic term's weight while mapping
 
 
 def _round_up(x, m):
@@ -155,6 +161,73 @@ def _iso_loss(scal, alive, weight):
     return weight * iso.sum() / torch.clamp(3 * alive.sum(), min=1)
 
 
+def _activations(params, w2cs, sh_degree):
+    """(opacity (N,), scale (N,3), colours) of the parameters."""
+    opac = torch.sigmoid(params["opacity"])[:, 0]
+    scal = torch.exp(params["scaling"])
+    cols = _colors(params["f_dc"], params["f_rest"], params["xyz"], w2cs,
+                   sh_degree)
+    return opac, scal, cols
+
+
+def _shard_loss(color, depth, exposure, c, scal, alive, iso_weight, *,
+                alpha, use_ssim):
+    """A shard's loss: its exposure-corrected render against its frames
+    over the valid cameras, plus, given `scal`, the isotropic term."""
+    ue = c.use_exposure[:, None, None, None]
+    image_ab = torch.where(
+        ue, torch.exp(exposure[:, 0, None, None, None]) * color
+        + exposure[:, 1, None, None, None], color)
+    per_cam = mapping_loss(image_ab, depth, c.images, c.depths, alpha=alpha,
+                           use_ssim=use_ssim)
+    total = torch.where(c.cam_valid, per_cam,
+                        torch.zeros_like(per_cam)).sum()
+    if scal is not None:
+        total = total + _iso_loss(scal, alive, iso_weight)
+    return total
+
+
+def _densify_stats(radii, g_dummy, cam_valid):
+    """The radii (B,C) of the valid cameras and, over the cameras that see
+    each Gaussian, the sum of its screen-space gradient norms, their count
+    and its largest radius (mapper.py:522-529)."""
+    radii = radii * cam_valid[:, None]
+    vis_any = radii > 0
+    gn = (torch.linalg.norm(g_dummy, dim=-1) * vis_any).sum(0)
+    vs = vis_any.sum(0).float()
+    mr = (radii * vis_any).max(0).values
+    return radii, gn, vs, mr
+
+
+def _cam_adam(c, exposure, g_expo, g_tau, bc1, bc2, lr_vec):
+    """A shard's exposure Adam rows and, given the pose gradient `g_tau`,
+    its pose rows retracted into w2cs (monogs update_pose): the new values
+    of _Cams.STATE's fields by name. bc1/bc2 are the bias corrections as
+    G.unbias takes them, lr_vec the pose learning rates (6,)."""
+    ge = g_expo * (c.use_exposure & c.cam_valid)[:, None]
+    em = 0.9 * c.em + 0.1 * ge
+    ev = 0.999 * c.ev + 0.001 * ge * ge
+    new = dict(em=em, ev=ev, exposure=exposure.detach() - 0.01 * (
+        G.unbias(em, bc1)) / (torch.sqrt(G.unbias(ev, bc2)) + 1e-8))
+    if g_tau is not None:
+        pm = (c.opt_pose_mask & c.cam_valid)[:, None]
+        gt_ = g_tau * pm
+        tm = 0.9 * c.tm + 0.1 * gt_
+        tv = 0.999 * c.tv + 0.001 * gt_ * gt_
+        upd = lr_vec * G.unbias(tm, bc1) / (
+            torch.sqrt(G.unbias(tv, bc2)) + 1e-8)
+        new_tau = torch.where(pm, -upd, torch.zeros_like(upd))
+        dT = lie.to_matrix(lie.exp(new_tau))
+        new.update(tm=tm, tv=tv, w2cs=torch.where(pm[:, :, None],
+                                                  dT @ c.w2cs, c.w2cs))
+    return new
+
+
+def _lr_row(cam_lrs):
+    """The pose learning rates (translation ×3, rotation ×3)."""
+    return [cam_lrs[0]] * 3 + [cam_lrs[1]] * 3
+
+
 def _step_shards(st, reps, shards, lrs, cam_lrs, step, iso_weight, *, H, W,
                  K, use_ssim, alpha, opt_poses, sh_degree, want_touched,
                  max_span):
@@ -171,7 +244,7 @@ def _step_shards(st, reps, shards, lrs, cam_lrs, step, iso_weight, *, H, W,
     statistics and Adam steps as one `map.adam`."""
     with span("map.iter"):
         dev0, C = st.device, st.capacity
-        t = float(step)
+        bc1, bc2 = G.bias_corrections(step)
         g_sum, loss, radii_l, nt_l = None, None, [], []
         vis_sum = gnorm_sum = max_r = None
         if not any(k == 0 for k, _ in shards):
@@ -194,26 +267,17 @@ def _step_shards(st, reps, shards, lrs, cam_lrs, step, iso_weight, *, H, W,
                 taus = torch.zeros((B, 6), device=dev, requires_grad=opt_poses)
                 dummy = torch.zeros((B, C, 2), device=dev, requires_grad=True)
 
-                opac = torch.sigmoid(params["opacity"])[:, 0]
-                scal = torch.exp(params["scaling"])
-                cols = _colors(params["f_dc"], params["f_rest"], params["xyz"],
-                               c.w2cs, sh_degree)
+                opac, scal, cols = _activations(params, c.w2cs, sh_degree)
                 out = rz.rasterize_batch(
                     params["xyz"], scal, params["rotation"], opac, cols,
                     src.alive, c.w2cs, taus, c.intrinsics,
                     torch.zeros(3, device=dev), means2d_dummy=dummy,
                     tile_ids=c.tile_ids, tile_counts=c.tile_counts, H=H, W=W,
                     K=K, want_touched=want_touched, max_span=max_span)
-                ue = c.use_exposure[:, None, None, None]
-                image_ab = torch.where(
-                    ue, torch.exp(exposure[:, 0, None, None, None]) * out.color
-                    + exposure[:, 1, None, None, None], out.color)
-                per_cam = mapping_loss(image_ab, out.depth, c.images, c.depths,
-                                       alpha=alpha, use_ssim=use_ssim)
-                total = torch.where(c.cam_valid, per_cam,
-                                    torch.zeros_like(per_cam)).sum()
-                if k == 0:
-                    total = total + _iso_loss(scal, src.alive, iso_weight)
+                total = _shard_loss(out.color, out.depth, exposure, c,
+                                    scal if k == 0 else None, src.alive,
+                                    iso_weight, alpha=alpha,
+                                    use_ssim=use_ssim)
 
             with span("map.bwd"):
                 leaves = [params[n] for n in G.PARAM_NAMES] + [exposure, dummy]
@@ -235,40 +299,22 @@ def _step_shards(st, reps, shards, lrs, cam_lrs, step, iso_weight, *, H, W,
                     g_sum = {n: g_sum[n] + g_p[n].to(dev0) for n in g_sum}
                 loss = total.detach().to(dev0) if loss is None \
                     else loss + total.detach().to(dev0)
-                radii = out.radii * c.cam_valid[:, None]
+                radii, gn, vs, mr = _densify_stats(out.radii, g_dummy,
+                                                   c.cam_valid)
                 radii_l.append(radii.to(dev0))
                 nt_l.append((out.n_touched * c.cam_valid[:, None]).to(dev0))
-                # densification statistics: screen-space gradient norms over
-                # the cameras that see each Gaussian (mapper.py:522-529)
-                vis_any = radii > 0
-                gn = (torch.linalg.norm(g_dummy, dim=-1) * vis_any).sum(0)
-                vs = vis_any.sum(0).float()
-                mr = (radii * vis_any).max(0).values
                 gnorm_sum = gn.to(dev0) if gnorm_sum is None \
                     else gnorm_sum + gn.to(dev0)
                 vis_sum = vs.to(dev0) if vis_sum is None \
                     else vis_sum + vs.to(dev0)
                 max_r = mr.to(dev0) if max_r is None \
                     else torch.maximum(max_r, mr.to(dev0))
-
-                ge = g_expo * (c.use_exposure & c.cam_valid)[:, None]
-                c.em = 0.9 * c.em + 0.1 * ge
-                c.ev = 0.999 * c.ev + 0.001 * ge * ge
-                c.exposure = exposure.detach() - 0.01 * (
-                    c.em / (1 - 0.9 ** t)) / (
-                    torch.sqrt(c.ev / (1 - 0.999 ** t)) + 1e-8)
-                if opt_poses:
-                    pm = (c.opt_pose_mask & c.cam_valid)[:, None]
-                    gt_ = grads[-1] * pm
-                    c.tm = 0.9 * c.tm + 0.1 * gt_
-                    c.tv = 0.999 * c.tv + 0.001 * gt_ * gt_
-                    lr_vec = torch.tensor([cam_lrs[0]] * 3 + [cam_lrs[1]] * 3,
-                                          device=dev)
-                    upd = lr_vec * (c.tm / (1 - 0.9 ** t)) / (
-                        torch.sqrt(c.tv / (1 - 0.999 ** t)) + 1e-8)
-                    new_tau = torch.where(pm, -upd, torch.zeros_like(upd))
-                    dT = lie.to_matrix(lie.exp(new_tau))
-                    c.w2cs = torch.where(pm[:, :, None], dT @ c.w2cs, c.w2cs)
+                lr_vec = torch.tensor(_lr_row(cam_lrs), device=dev) \
+                    if opt_poses else None
+                for f, v in _cam_adam(c, exposure, g_expo,
+                                      grads[-1] if opt_poses else None,
+                                      bc1, bc2, lr_vec).items():
+                    setattr(c, f, v)
 
             st.grad_accum += gnorm_sum
             st.denom += vis_sum
@@ -327,6 +373,222 @@ def _rebin(st, w2cs, intrinsics, *, H, W, K, margin, rebin_every, max_span):
                         W=W, K=K, margin=margin, max_span=max_span)
 
 
+# ---------------------------------------------------------------------------
+# the iteration split at the compositor, replayed from CUDA graphs
+# ---------------------------------------------------------------------------
+
+# the map's fields a split iteration reads (_MAP_IN) and writes (_MAP_OUT)
+_MAP_OUT = G.PARAM_NAMES + tuple(
+    p + n for n in G.PARAM_NAMES for p in ("m_", "v_")) + (
+    "grad_accum", "denom", "max_radii2D")
+_MAP_IN = _MAP_OUT + ("alive",)
+_CAM_IN = ("w2cs", "images", "depths", "exposure", "use_exposure",
+           "cam_valid", "opt_pose_mask", "em", "ev", "tm", "tv",
+           "intrinsics")
+# a split iteration's step-dependent scalars: the learning rates by
+# G.PARAM_NAMES, the two bias corrections (G.graph_factor), the pose
+# learning rates
+_N_LR = len(G.PARAM_NAMES)
+_N_SCALARS = _N_LR + 2 + 6
+
+_SPLITS = {}      # _SplitStep by key (_split_key)
+_MAPS = {}        # the map's buffers by (device, capacity, SH rows)
+_POOLS = {}       # one graph memory pool per device
+
+
+def _split_scalars(lrs_at, cam_lrs, step0, n):
+    """(n, _N_SCALARS) float32 rows of the step-dependent scalars of the
+    iterations at steps step0 .. step0 + n - 1 (Adam steps one later),
+    computed on the host as _step_shards computes them."""
+    rows = []
+    for i in range(n):
+        lrs = lrs_at(step0 + i)
+        rows.append([lrs[p] for p in G.PARAM_NAMES]
+                    + [G.graph_factor(bc)
+                       for bc in G.bias_corrections(step0 + i + 1)]
+                    + _lr_row(cam_lrs))
+    return torch.tensor(rows, dtype=torch.float32)
+
+
+def _split_key(st, B, *, H, W, use_ssim, alpha, opt_poses, sh_degree,
+              iso_weight):
+    """What a split iteration's pieces are built for: a capture serves
+    every segment with the same key."""
+    return (str(_indexed(st.device)), B, st.capacity, st.f_rest.shape[1], H,
+            W, bool(use_ssim), float(alpha), bool(opt_poses), sh_degree,
+            float(iso_weight))
+
+
+class _SplitStep:
+    """One mapping iteration of one shard as three pieces around the
+    compositor: A, the parameters to the packets (activations, colours,
+    projection); B, the composite to the loss (exposure, mapping_loss, the
+    isotropic term, the cam_valid mask); C, the densification statistics,
+    the exposure and pose Adam rows and G.adam_update. The same arithmetic
+    as _step_shards, over state at fixed addresses: the map's buffers
+    (`s`, shared by the keys of one capacity), the cameras' (`cam`) and the
+    step-dependent scalars (`sc`), read from device memory; `load` copies a
+    segment's state in, `store` back out. A graph keeps no tensor alive,
+    so every tensor the pieces read lives in `s`, `cam` or `sc`.
+
+    On a CUDA device A and B replay CUDA graphs through autograd
+    (torch.cuda.make_graphed_callables: a forward and a backward graph
+    each), the compositor stays eager between them (B1, B2 through
+    ops/raster_cuda), and C replays one more graph over the gradients and
+    radii copied into its input buffers (`c_in`). Elsewhere the pieces run
+    as plain functions."""
+
+    def __init__(self, st, B, *, H, W, use_ssim, alpha, opt_poses,
+                 sh_degree, iso_weight):
+        dev = st.device
+        self.graphed = dev.type == "cuda"
+        self.W, self.opt_poses = W, opt_poses
+        mk = (str(_indexed(dev)), st.capacity, st.f_rest.shape[1])
+        if mk not in _MAPS:
+            _MAPS[mk] = G.GaussianState(**{
+                f: torch.zeros_like(getattr(st, f)) for f in G.FIELDS})
+            for n in G.PARAM_NAMES:
+                getattr(_MAPS[mk], n).requires_grad_(True)
+        s = self.s = _MAPS[mk]
+        C = st.capacity
+        z = lambda *shape, **kw: torch.zeros(shape, device=dev, **kw)
+        cam = self.cam = types.SimpleNamespace(
+            w2cs=z(B, 4, 4), images=z(B, H, W, 3), depths=z(B, H, W),
+            exposure=z(B, 2, requires_grad=True),
+            use_exposure=z(B, dtype=torch.bool),
+            cam_valid=z(B, dtype=torch.bool),
+            opt_pose_mask=z(B, dtype=torch.bool), em=z(B, 2), ev=z(B, 2),
+            tm=z(B, 6), tv=z(B, 6), intrinsics=z(4), bg=z(3),
+            taus=z(B, 6, requires_grad=opt_poses),
+            dummy=z(B, C, 2, requires_grad=True))
+        self.sc = z(_N_SCALARS)
+        self.lrs = dict(zip(G.PARAM_NAMES, self.sc[:_N_LR]))
+        self.bc = self.sc[_N_LR], self.sc[_N_LR + 1]
+        self.lr_vec = self.sc[_N_LR + 2:]
+        self.leaves = [getattr(s, n) for n in G.PARAM_NAMES] + [
+            cam.exposure, cam.dummy] + ([cam.taus] if opt_poses else [])
+
+        def piece_a(xyz, f_dc, f_rest, opacity, scaling, rotation, dummy,
+                    *taus):
+            params = dict(zip(G.PARAM_NAMES, (xyz, f_dc, f_rest, opacity,
+                                              scaling, rotation)))
+            opac, scal, cols = _activations(params, cam.w2cs, sh_degree)
+            packets, *_, radii = rz.project_packets(
+                xyz, scal, rotation, opac, cols, s.alive, cam.w2cs,
+                taus[0] if taus else cam.taus, cam.intrinsics, dummy, H=H,
+                W=W)
+            return packets, radii, scal
+
+        def piece_b(out, exposure, scal):
+            color, depth, _ = rz.tiles_to_image(out, cam.bg, H=H, W=W)
+            return _shard_loss(color, depth, exposure, cam, scal, s.alive,
+                               iso_weight, alpha=alpha, use_ssim=use_ssim)
+
+        self.a_args = tuple(self.leaves[:_N_LR]) + (cam.dummy,) + (
+            (cam.taus,) if opt_poses else ())
+        if not self.graphed:
+            self.piece_a, self.piece_b = piece_a, piece_b
+            return
+        T = ((W + rz.TILE - 1) // rz.TILE) * ((H + rz.TILE - 1) // rz.TILE)
+        b_args = (z(B, T, 5, rz.NPIX, requires_grad=True), cam.exposure,
+                  z(C, 3, requires_grad=True))
+        # C's inputs: the gradients by leaf, then the radii
+        self.c_in = [torch.zeros_like(x) for x in self.leaves] + [z(B, C)]
+        pool = _POOLS.setdefault(str(_indexed(dev)),
+                                 torch.cuda.graph_pool_handle())
+        with span("map.capture"), torch.cuda.device(dev):
+            self.piece_a, self.piece_b = torch.cuda.make_graphed_callables(
+                (piece_a, piece_b), (self.a_args, b_args),
+                allow_unused_input=True, pool=pool)
+            self.c_graph = self._capture_c(pool)
+        tally("n.map.capture", 1)
+
+    @torch.no_grad()
+    def load(self, st, c, scalars):
+        """A segment's start: the map's and the cameras' state in, and the
+        (n, _N_SCALARS) rows of its iterations' scalars."""
+        for f in _MAP_IN:
+            getattr(self.s, f).copy_(getattr(st, f))
+        for f in _CAM_IN:
+            getattr(self.cam, f).copy_(getattr(c, f))
+        if self.graphed:
+            scalars = scalars.pin_memory()
+        self.rows = scalars.to(self.sc.device, non_blocking=True)
+
+    @torch.no_grad()
+    def store(self, st, c):
+        """A segment's end: the map's state back into `st`'s tensors, the
+        cameras' into new tensors of `c`."""
+        for f in _MAP_OUT:
+            getattr(st, f).copy_(getattr(self.s, f))
+        for f in _Cams.STATE:
+            setattr(c, f, getattr(self.cam, f).detach().clone())
+
+    @torch.no_grad()
+    def _piece_c(self, s, cam, grads, radii):
+        P = _N_LR
+        _, gn, vs, mr = _densify_stats(radii, grads[P + 1], cam.cam_valid)
+        s.grad_accum += gn
+        s.denom += vs
+        torch.maximum(s.max_radii2D, mr, out=s.max_radii2D)
+        for f, v in _cam_adam(cam, cam.exposure, grads[P],
+                              grads[P + 2] if self.opt_poses else None,
+                              *self.bc, self.lr_vec).items():
+            getattr(cam, f).copy_(v)
+        G.adam_update(s, dict(zip(G.PARAM_NAMES, grads[:P])), self.lrs,
+                      *self.bc)
+
+    def _capture_c(self, pool):
+        """C's graph over `c_in`, warmed up on copies of the state."""
+        copy = lambda ns, names: types.SimpleNamespace(**{
+            n: getattr(ns, n).detach().clone() for n in names})
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            self._piece_c(copy(self.s, _MAP_IN), copy(self.cam, _CAM_IN),
+                          self.c_in[:-1], self.c_in[-1])
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=pool):
+            self._piece_c(self.s, self.cam, self.c_in[:-1], self.c_in[-1])
+        return graph
+
+    def iterate(self, i, tile_ids, tile_counts):
+        """The segment's iteration `i` on prebinned tile lists, traced as
+        _step_shards is; a replayed one counts under `n.map.graphed`."""
+        with span("map.iter"):
+            with span("map.fwd"):
+                packets, radii, scal = self.piece_a(*self.a_args)
+                out, _ = rz.composite(packets, tile_ids, tile_counts,
+                                      self.W, False)
+                total = self.piece_b(out, self.cam.exposure, scal)
+            with span("map.bwd"):
+                grads = torch.autograd.grad(total, self.leaves,
+                                            allow_unused=True)
+            with span("map.adam"), torch.no_grad():
+                self.sc.copy_(self.rows[i])
+                if not self.graphed:
+                    self._piece_c(self.s, self.cam, [
+                        torch.zeros_like(x) if g is None else g
+                        for x, g in zip(self.leaves, grads)], radii)
+                    return
+                # an unused leaf's gradient (None) stays C's zeros
+                for x, g in zip(self.c_in, grads + (radii,)):
+                    if g is not None:
+                        x.copy_(g)
+                self.c_graph.replay()
+        tally("n.map.graphed", 1)
+
+
+def _split_step(st, B, **kw):
+    """The cached _SplitStep of this key, built (and captured) at its
+    first use."""
+    key = _split_key(st, B, **kw)
+    if key not in _SPLITS:
+        _SPLITS[key] = _SplitStep(st, B, **kw)
+    return _SPLITS[key]
+
+
 def map_step_n(st, exp_state, tau_state, w2cs, images, depths, exposure,
                use_exposure, cam_valid, opt_pose_mask, intrinsics,
                lr_scalars, cam_lrs, step0, n_iters, iso_weight, *, H, W, K,
@@ -342,7 +604,10 @@ def map_step_n(st, exp_state, tau_state, w2cs, images, depths, exposure,
     alone (final_refine's one-random-frame-per-step schedule), each step
     binning its own camera exactly. devices: as in map_step; the rows are
     split once for the whole segment, each shard bins its own cameras on
-    its device, and a per-step row trains where its shard lives."""
+    its device, and a per-step row trains where its shard lives. With
+    `devices` None on a CUDA device, the iterations before the last replay
+    _SplitStep's CUDA graphs (the same arithmetic); the last one is always
+    `_step_shards`."""
     kw = dict(H=H, W=W, K=K, use_ssim=use_ssim, alpha=alpha,
               opt_poses=opt_poses, sh_degree=sh_degree, max_span=max_span)
     bin_kw = dict(H=H, W=W, K=K, rebin_every=rebin_every, max_span=max_span)
@@ -376,7 +641,24 @@ def map_step_n(st, exp_state, tau_state, w2cs, images, depths, exposure,
                 iso_weight, want_touched=(i == n_iters - 1), **kw)
             c.write_rows(slice(r, r + 1), one)
     else:
-        for i in range(n_iters - 1):
+        # all but the last iteration replay CUDA graphs where they can
+        n_split = n_iters - 1 if (devices is None
+                                  and st.device.type == "cuda") else 0
+        if n_split:
+            c = shards[0][1]
+            sp = _split_step(st, c.w2cs.shape[0], H=H, W=W,
+                             use_ssim=use_ssim, alpha=alpha,
+                             opt_poses=opt_poses, sh_degree=sh_degree,
+                             iso_weight=iso_weight)
+            sp.load(st, c, _split_scalars(lrs_at, cam_lrs, step0, n_split))
+            for i in range(n_split):
+                if i % rebin_every == 0:
+                    with span("map.bin"):
+                        tiles = _rebin(sp.s, sp.cam.w2cs, c.intrinsics,
+                                       margin=rebin_margin, **bin_kw)
+                sp.iterate(i, *tiles)
+            sp.store(st, c)
+        for i in range(n_split, n_iters - 1):
             if i % rebin_every == 0:
                 with span("map.bin"):
                     for k, c in shards:
@@ -618,7 +900,7 @@ class Mapper:
         return w2cs, imgs, deps, expo, use_exp, valid
 
     def _run_iters(self, cams, iters, densify_cfg=None, store_expo=True,
-                   opt_poses=False, n_window=0, iso_weight=10.0,
+                   opt_poses=False, n_window=0, iso_weight=ISO_WEIGHT,
                    persist_exp_state=False, per_step=False):
         """Shared optimisation loop of map/initialize_map/final_refine: runs
         map_step_n segments between densify/reset gates, handling each
@@ -753,6 +1035,18 @@ class Mapper:
             store_expo=False)
         self.occ_vis[video_idx] = out[1][0] > 0
         return out
+
+    def _capture_window_graphs(self):
+        """Build map_step_n's graph path (_split_step) for every camera
+        count a window's segment can have, up to window_size keyframes and
+        two others, so that no capture falls inside the stream."""
+        if self.devices is not None or self.device.type != "cuda":
+            return
+        for B in range(1, self.window_size + 3):
+            _split_step(self.st, B, H=self.H, W=self.W,
+                        use_ssim=self.use_ssim, alpha=self.alpha,
+                        opt_poses=self.opt_poses_enabled,
+                        sh_degree=self.sh_degree, iso_weight=ISO_WEIGHT)
 
     def _window_rows(self, window):
         """occ_vis rows of the window, padded to window_size with the
@@ -992,6 +1286,7 @@ class Mapper:
                 self.add_next_kf(video_idx, cam, depth, init=True)
             with T("map.opt"):
                 self.initialize_map(video_idx, cam)
+                self._capture_window_graphs()
             return True
 
         if not np.isfinite(median_depth):

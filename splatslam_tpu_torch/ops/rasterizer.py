@@ -423,6 +423,50 @@ def make_packets(means2d, conic, colors, opacities, depth_z):
         depth_z[..., None]], -1).contiguous()
 
 
+def project_packets(means3D, scales, rotations, opacities, colors, alive,
+                    w2cs, taus, intrinsics, means2d_dummy=None, *, H, W,
+                    near=0.01):
+    """rasterize_batch before the compositor: the projection, the
+    screen-space dummy added to the means and the compositor's packets.
+    Returns (packets (B,N,10), means2d, depth_z, radius, visible, radii
+    (B,N): the binning inputs and the detached radii of the visible
+    Gaussians)."""
+    B = w2cs.shape[0]
+    N = means3D.shape[0]
+    if colors.dim() == 2:
+        colors = colors[None].expand(B, N, 3)
+    means2d, depth_z, conic, radius, visible = _project_cameras(
+        means3D, scales, rotations, alive, w2cs, taus, intrinsics,
+        H, W, near)
+    if means2d_dummy is not None:
+        means2d = means2d + means2d_dummy
+    packets = make_packets(means2d, conic, colors, opacities, depth_z)
+    radii = torch.where(visible, radius, torch.zeros_like(radius)).detach()
+    return packets, means2d, depth_z, radius, visible, radii
+
+
+def tiles_to_image(out, bg, *, H, W):
+    """rasterize_batch after the compositor: its (B,T,5,256) tile rows as
+    images. Returns (color (B,H,W,3) over the background, depth, alpha)."""
+    B = out.shape[0]
+    ntx, nty = (W + TILE - 1) // TILE, (H + TILE - 1) // TILE
+    img = out.reshape(B, nty, ntx, 5, TILE, TILE).permute(
+        0, 1, 4, 2, 5, 3).reshape(B, nty * TILE, ntx * TILE, 5)[:, :H, :W]
+    alpha = img[..., 4]
+    color = img[..., :3] + (1.0 - alpha)[..., None] * bg
+    return color, img[..., 3], alpha
+
+
+def composite(packets, tile_ids, tile_counts, W, want_touched):
+    """The compositor between project_packets and tiles_to_image: B1
+    forward, B2 backward (their plain versions on the CPU). Returns
+    (out (B,T,5,256), n_touched (B,N))."""
+    ntx = (W + TILE - 1) // TILE
+    return _Composite.apply(
+        packets, tile_ids.to(torch.int32).contiguous(),
+        tile_counts.to(torch.int32).contiguous(), ntx, want_touched)
+
+
 def rasterize_batch(means3D, scales, rotations, opacities, colors, alive,
                     w2cs, taus, intrinsics, bg, means2d_dummy=None,
                     tile_ids=None, tile_counts=None, *, H, W, K=512,
@@ -434,38 +478,22 @@ def rasterize_batch(means3D, scales, rotations, opacities, colors, alive,
     pose deltas (exp(tau) ∘ w2c); intrinsics (4,); bg (3,);
     means2d_dummy (B,N,2) zeros whose gradient is the screen-space
     gradient; tile_ids/tile_counts: optional prebinned lists (bin_batch).
-    want_touched=False returns an all-zero n_touched.
+    want_touched=False returns an all-zero n_touched. Three pieces:
+    project_packets, composite, tiles_to_image.
     """
-    B = w2cs.shape[0]
-    N = means3D.shape[0]
-    if colors.dim() == 2:
-        colors = colors[None].expand(B, N, 3)
     ntx, nty = (W + TILE - 1) // TILE, (H + TILE - 1) // TILE
-    T = ntx * nty
-
-    means2d, depth_z, conic, radius, visible = _project_cameras(
-        means3D, scales, rotations, alive, w2cs, taus, intrinsics,
-        H, W, near)
-    if means2d_dummy is not None:
-        means2d = means2d + means2d_dummy
-
+    packets, means2d, depth_z, radius, visible, radii = project_packets(
+        means3D, scales, rotations, opacities, colors, alive, w2cs, taus,
+        intrinsics, means2d_dummy, H=H, W=W, near=near)
     if tile_ids is None:
         with torch.no_grad():
             tile_ids, tile_counts = bin_gaussians_batch(
                 means2d, _bin_radius(radius, opacities), depth_z, visible,
                 ntx, nty, K, max_span)
-
-    packets = make_packets(means2d, conic, colors, opacities, depth_z)
-    out, n_touched = _Composite.apply(
-        packets, tile_ids.to(torch.int32).contiguous(),
-        tile_counts.to(torch.int32).contiguous(), ntx, want_touched)
-
-    img = out.reshape(B, nty, ntx, 5, TILE, TILE).permute(
-        0, 1, 4, 2, 5, 3).reshape(B, nty * TILE, ntx * TILE, 5)[:, :H, :W]
-    alpha = img[..., 4]
-    color = img[..., :3] + (1.0 - alpha)[..., None] * bg
-    radii = torch.where(visible, radius, torch.zeros_like(radius)).detach()
-    return RenderOutput(color=color, depth=img[..., 3], alpha=alpha,
+    out, n_touched = composite(packets, tile_ids, tile_counts, W,
+                               want_touched)
+    color, depth, alpha = tiles_to_image(out, bg, H=H, W=W)
+    return RenderOutput(color=color, depth=depth, alpha=alpha,
                         radii=radii, n_touched=n_touched, means2d=means2d)
 
 

@@ -17,6 +17,7 @@ timers are current.
 
 Which metric reads each span and counter (benchmark/metrics/):
   map.iter               map_iter_ms (calls)
+  n.map.graphed          map_graphed_pct (over map.iter's calls)
   map.*                  map_idle_pct (idle under them)
   fe.round, n.edges      round_us_per_edge
   fe.*, lc.*             frontend_idle_pct (idle under them)
@@ -34,10 +35,10 @@ import torch
 
 # the spans, by where they are entered
 SPANS = frozenset({
-    # mapping/mapper.py: map_step_n, _step_shards, Mapper._run_iters and
-    # Mapper._handle_host_events
+    # mapping/mapper.py: map_step_n, _step_shards, _SplitStep,
+    # Mapper._run_iters and Mapper._handle_host_events
     "map.bin", "map.iter", "map.fwd", "map.bwd", "map.adam", "map.densify",
-    "map.pull",
+    "map.pull", "map.capture",
     # tracking/factor_graph.py: FactorGraph.update_rounds
     "fe.setup", "fe.round", "fe.update", "fe.dba", "fe.dspo", "fe.cull",
     # tracking/backend.py: Backend.ba

@@ -23,7 +23,11 @@ torch and the port only, so it runs on a GPU machine without jax:
     the network parity tolerance) and one decide_batch chunk of 8 frames
     (equal decisions, deltas within 5e-3);
   * the tracer's host-sync counter: one count per synchronising call
-    while a profiler runs, none from the phases' own synchronisations.
+    while a profiler runs, none from the phases' own synchronisations;
+  * the mapper's graph path: 20 replayed iterations against the eager
+    ones (crossing rebins, a camera-count change and a replaced map), one
+    capture per key, no host sync in a replay, and B1/B2 launch records
+    that pair with the device trace's launches (the kernel rooflines).
 """
 
 import numpy as np
@@ -290,3 +294,182 @@ def test_sync_counter_counts_each_wait_while_profiled():
     assert t.total["n.sync"] == 5, t.total
     assert t.total["n.sync.fe.round"] == 3
     assert t.total["n.sync.frontend"] == 2
+
+
+# -- the map iteration replayed from CUDA graphs ------------------------------
+
+MAP_H, MAP_W, MAP_K, MAP_C = 64, 96, 64, 4096
+
+
+def _map_state(seed=0, n_alive=3000):
+    """A random map of MAP_C rows in front of the cameras, on the card."""
+    from splatslam_tpu_torch.mapping import gaussians as G
+    rng = np.random.RandomState(seed)
+    C = MAP_C
+    st = G.make_state(C, device="cuda")
+    t = lambda x: torch.as_tensor(np.asarray(x, np.float32), device="cuda")
+    st.xyz[:] = t(np.stack([rng.uniform(-0.8, 0.8, C),
+                            rng.uniform(-0.6, 0.6, C),
+                            1.5 + 1.5 * rng.permutation(C) / C], -1))
+    st.f_dc[:] = t(rng.randn(C, 3) * 0.5)
+    st.opacity[:] = t(rng.uniform(-1.0, 2.0, (C, 1)))
+    st.scaling[:] = t(np.log(rng.uniform(0.01, 0.06, (C, 3))))
+    st.rotation[:] = t(rng.randn(C, 4))
+    st.alive[:] = torch.arange(C, device="cuda") < n_alive
+    return st
+
+
+def _map_cams(B, seed=1):
+    rng = np.random.RandomState(seed)
+    t = lambda x: torch.as_tensor(np.asarray(x, np.float32), device="cuda")
+    w2cs = np.tile(np.eye(4, dtype=np.float32), (B, 1, 1))
+    w2cs[:, :3, 3] = 0.05 * rng.randn(B, 3)
+    return dict(w2cs=t(w2cs), images=t(rng.rand(B, MAP_H, MAP_W, 3)),
+                depths=t(2.0 + 0.3 * rng.rand(B, MAP_H, MAP_W)),
+                exposure=t(0.05 * rng.randn(B, 2)),
+                use_exposure=torch.arange(B, device="cuda") > 0,
+                cam_valid=torch.ones(B, dtype=torch.bool, device="cuda"))
+
+
+def _map_segments(devices):
+    """20 mapping iterations of map_step_n from one map: 8 over two
+    cameras (rebins at iterations 0, 3, 6), densify_and_prune and a fixed
+    prune replacing every tensor of the map, 8 over three cameras, 4 over
+    the first two again. `devices` None takes the graph path; a
+    one-device list the eager one. Returns the map and the exposures."""
+    from splatslam_tpu_torch.mapping import gaussians as G
+    from splatslam_tpu_torch.mapping import mapper as M
+    st = _map_state()
+    intr = torch.tensor([60.0, 60.0, 47.5, 31.5], device="cuda")
+    lrs = dict(xyz=0.0, f_dc=2.5e-3, f_rest=1.25e-4, opacity=0.05,
+               scaling=6e-3, rotation=1e-3)
+    expos = []
+    step = 0
+    for k, (B, n) in enumerate(((2, 8), (3, 8), (2, 4))):
+        c = _map_cams(B, seed=k)
+        z2 = torch.zeros(B, 2, device="cuda")
+        z6 = torch.zeros(B, 6, device="cuda")
+        out = M.map_step_n(
+            st, (z2, z2), (z6, z6), c["w2cs"], c["images"], c["depths"],
+            c["exposure"], c["use_exposure"], c["cam_valid"],
+            torch.zeros(B, dtype=torch.bool, device="cuda"), intr, lrs,
+            (5e-4, 1.5e-3), step, n, 10.0, H=MAP_H, W=MAP_W, K=MAP_K,
+            use_ssim=False, alpha=0.8,
+            lr_sched=(9.6e-4, 9.6e-6, 0.01, 30000), rebin_every=3,
+            devices=devices)
+        st, expos = out[0], expos + [out[4]]
+        step += n
+        if k == 0:
+            # thresholds that select nothing: the same map in every run,
+            # in new tensors
+            st = G.densify_and_prune(st, 1e9, 0.0, 6.0, None)
+            drop = torch.zeros(MAP_C, dtype=torch.bool, device="cuda")
+            drop[::7] = True
+            st = G.prune_by_mask(st, drop)
+    return st, expos
+
+
+@pytest.mark.cuda
+def test_graphed_map_segments_match_eager():
+    """The graph path (devices None) against the eager one (a one-device
+    list) over 20 iterations that cross rebins, a change of the camera
+    count and a replaced map. B2's float atomics make two eager runs
+    differ already, so each field may differ from the first eager run by
+    four times the two eager runs' largest difference, taken no smaller
+    than the float32 spacing at the field's largest value: the atomics
+    reach the exposures only through the parameters' rounding, and a
+    field that two runs happen to leave equal moves by an ulp or two in a
+    third. The segments capture once per camera count, and replay once
+    per iteration but each segment's last."""
+    _need_cuda()
+    from splatslam_tpu_torch.mapping import gaussians as G
+    from splatslam_tpu_torch.mapping import mapper as M
+    from splatslam_tpu_torch.utils import profiling
+    torch.backends.cuda.matmul.allow_tf32 = False
+    eager = [_map_segments([torch.device("cuda")]) for _ in range(2)]
+    M._SPLITS.clear()
+    t = profiling.PhaseTimers("cuda")
+    profiling.set_current(t)
+    try:
+        graphed = _map_segments(None)
+        _map_segments(None)
+    finally:
+        profiling.set_current(None)
+    assert t.total["n.map.capture"] == 2, t.total
+    assert t.total["n.map.graphed"] == 2 * (7 + 7 + 3)
+    fields = M._MAP_OUT + ("alive",)
+    eps = torch.finfo(torch.float32).eps
+
+    def row(name, e0, e1, g):
+        if not e0.numel():
+            return name, 0.0, 0.0
+        spread = max(float((e0 - e1).abs().max()),
+                     eps * float(e0.abs().max()))
+        return name, float((g - e0).abs().max()), spread
+
+    rows = [row(f, *(getattr(r[0], f).double() for r in (*eager, graphed)))
+            for f in fields]
+    rows += [row(f"exposure{i}", *(r[1][i].double()
+                                   for r in (*eager, graphed)))
+             for i in range(3)]
+    print("\n".join(f"{f}: graphed-eager {gap:.3e}, eager-eager "
+                    f"(or the spacing) {spread:.3e}"
+                    for f, gap, spread in rows))
+    for f, gap, spread in rows:
+        assert gap <= 4 * spread, (f, gap, spread)
+    moved = graphed[0].xyz - _map_state().xyz
+    assert float(moved.abs().max()) > 1e-4
+
+
+@pytest.mark.cuda
+def test_graph_replays_do_not_synchronise():
+    """With the sync debug mode counting (a profiler running), a graphed
+    segment's iterations wait on the device nowhere."""
+    _need_cuda()
+    from torch.profiler import ProfilerActivity, profile
+    from splatslam_tpu_torch.utils import profiling
+    _map_segments(None)         # every key captured
+    t = profiling.PhaseTimers("cuda")
+    profiling.set_current(t)
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]):
+            with t("map.opt"):
+                _map_segments(None)
+        with t("mapping"):      # the first phase edge after: counting off
+            pass
+    finally:
+        profiling.set_current(None)
+    assert torch.cuda.get_sync_debug_mode() == 0
+    assert t.total["n.map.graphed"] == 7 + 7 + 3
+    assert "n.map.capture" not in t.total
+    inside = {k: t.total.get(f"n.sync.{k}", 0)
+              for k in ("map.iter", "map.fwd", "map.bwd", "map.adam")}
+    assert not any(inside.values()), inside
+
+
+@pytest.mark.cuda
+def test_graphed_segments_keep_the_kernel_rooflines_readable():
+    """B1 and B2 stay eager launches through ops/raster_cuda: the
+    benchmark's launch records (probes.Counters) and the launches the
+    device trace finds (trace.reduce) pair one to one, as b1_roofline and
+    b2_roofline need."""
+    _need_cuda()
+    from benchmark import probes, trace
+    _map_segments(None)
+    counters = probes.Counters(MAP_H, MAP_W, MAP_K)
+    patches = probes.Patches()
+    counters.install(patches)
+    try:
+        counters.active = True
+        prof = trace.start("cuda")
+        _map_segments(None)
+        torch.cuda.synchronize()
+        trace.stop(prof)
+    finally:
+        patches.remove()
+    red = trace.reduce(prof)
+    _, launches = counters.read()
+    for name in ("composite_fwd", "composite_bwd"):
+        records = [x for x in launches if x[0] == name]
+        assert len(records) == 20
+        assert len(red["launches"][name]) == len(records), name

@@ -171,3 +171,102 @@ def test_map_step_n_matches_jax():
                         fields=("xyz", "f_dc", "opacity", "scaling",
                                 "rotation", "alive", "grad_accum", "denom",
                                 "max_radii2D"))
+
+
+def _render_inputs(seed=8, B=2):
+    st = gaussian_state_from_numpy(_as_numpy(_jax_state(seed=seed)),
+                                   device="cpu")
+    w2cs = T(_cams(seed=seed, B=B)[0])
+    rng = np.random.RandomState(seed)
+    taus = torch.as_tensor(0.01 * rng.randn(B, 6), dtype=torch.float32)
+    dummy = torch.zeros((B, st.capacity, 2))
+    leaves = [st.xyz, torch.exp(st.scaling), st.rotation,
+              torch.sigmoid(st.opacity)[:, 0], tG.get_colors_dc(st), taus,
+              dummy]
+    return [x.clone().requires_grad_(True) for x in leaves], st.alive, w2cs
+
+
+def test_render_pieces_compose_to_rasterize_batch():
+    """project_packets, the compositor and tiles_to_image, called one
+    after the other, give rasterize_batch's outputs and gradients bit for
+    bit."""
+    from splatslam_tpu_torch.ops import rasterizer as rz
+    (xyz, scal, rot, opac, cols, taus, dummy), alive, w2cs = \
+        _render_inputs()
+    intr, bg = T(INTR), torch.tensor([0.1, 0.2, 0.3])
+    leaves = [xyz, scal, rot, opac, cols, taus, dummy]
+    want = rz.rasterize_batch(xyz, scal, rot, opac, cols, alive, w2cs, taus,
+                              intr, bg, dummy, H=H, W=W, K=K)
+    packets, means2d, depth_z, radius, visible, radii = rz.project_packets(
+        xyz, scal, rot, opac, cols, alive, w2cs, taus, intr, dummy, H=H,
+        W=W)
+    ntx, nty = (W + 15) // 16, (H + 15) // 16
+    with torch.no_grad():
+        ids, counts = rz.bin_gaussians_batch(
+            means2d, rz._bin_radius(radius, opac), depth_z, visible, ntx,
+            nty, K)
+    out, n_touched = rz.composite(packets, ids, counts, W, True)
+    color, depth, alpha = rz.tiles_to_image(out, bg, H=H, W=W)
+    got = dict(color=color, depth=depth, alpha=alpha, radii=radii,
+               n_touched=n_touched, means2d=means2d)
+    for name, x in got.items():
+        assert torch.equal(x, getattr(want, name)), name
+    grads = [torch.autograd.grad(
+        (c * 0.3).sum() + d.sum() + (a ** 2).sum(), leaves,
+        retain_graph=True) for c, d, a in (
+            (want.color, want.depth, want.alpha), (color, depth, alpha))]
+    for name, a, b in zip("xyz scal rot opac cols taus dummy".split(),
+                          *grads):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("opt_poses", [False, True], ids=["map", "poses"])
+def test_split_step_matches_step_shards(opt_poses):
+    """Three iterations of the split step (pieces A, compositor, B, C, as
+    the graph path runs them; its learning rates and bias corrections read
+    from a device buffer) against three of _step_shards from the same map
+    and cameras, to test_map_step_n_matches_jax's tolerances."""
+    st_e = gaussian_state_from_numpy(_as_numpy(_jax_state(seed=9)),
+                                     device="cpu")
+    st_s = gaussian_state_from_numpy(_as_numpy(_jax_state(seed=9)),
+                                     device="cpu")
+    w2cs, images, depths, exposure, use_exp, valid, _ = [
+        T(x) for x in _cams(seed=10)]
+    B = w2cs.shape[0]
+    pose_mask = torch.tensor([False, True])
+
+    def cams():
+        z = lambda n: torch.zeros((B, n))
+        return tM._Cams(w2cs.clone(), images, depths, exposure.clone(),
+                        use_exp, valid, pose_mask, z(2), z(2), z(6), z(6),
+                        T(INTR))
+
+    c_e, c_s = cams(), cams()
+    cam_lrs = (5e-4, 1.5e-3)
+    lrs_at = lambda step: dict(LRS, xyz=tG.xyz_lr(step, 9.6e-4, 9.6e-6,
+                                                  0.01, 30000))
+    kw = dict(H=H, W=W, use_ssim=False, alpha=0.8, opt_poses=opt_poses,
+              sh_degree=0)
+    bin_kw = dict(H=H, W=W, K=K, rebin_every=8, max_span=4, margin=4.0)
+    sp = tM._SplitStep(st_s, B, iso_weight=10.0, **kw)
+    sp.load(st_s, c_s, tM._split_scalars(lrs_at, cam_lrs, 7, 3))
+    for i in range(3):
+        c_e.tile_ids, c_e.tile_counts = tM._rebin(st_e, c_e.w2cs, T(INTR),
+                                                  **bin_kw)
+        tM._step_shards(st_e, [], [(0, c_e)], lrs_at(7 + i), cam_lrs,
+                        8 + i, 10.0, K=K, want_touched=False, max_span=4,
+                        **kw)
+        sp.iterate(i, *tM._rebin(sp.s, sp.cam.w2cs, T(INTR), **bin_kw))
+    sp.store(st_s, c_s)
+    moved = st_e.xyz - T(np.asarray(_jax_state(seed=9).xyz))
+    assert float(moved.abs().max()) > 1e-5
+    for name in tM._MAP_OUT:
+        np.testing.assert_allclose(getattr(st_s, name).numpy(),
+                                   getattr(st_e, name).numpy(), rtol=1e-3,
+                                   atol=1e-5, err_msg=name)
+    for name in tM._Cams.STATE:
+        np.testing.assert_allclose(getattr(c_s, name).numpy(),
+                                   getattr(c_e, name).numpy(), rtol=1e-3,
+                                   atol=1e-5, err_msg=name)
+    if opt_poses:
+        assert float((c_e.w2cs - w2cs).abs().max()) > 0

@@ -277,6 +277,28 @@ def test_span_range_holds_the_profiler_events_launched_in_it():
     assert all(s > hi for s in starts["aten::div"])
 
 
+def _graphed_record(seconds, calls):
+    return dict(part=dict(window_s=20.0, frames=10, timers=dict(
+        seconds=seconds, calls=calls, mapped=3, keyframes=4)), trace=None)
+
+
+@pytest.mark.parametrize("seconds,calls,want", [
+    ({"n.map.graphed": 117}, {"map.iter": 120, "n.map.graphed": 117},
+     97.5),
+    ({"n.map.graphed": 0}, {"map.iter": 60, "n.map.graphed": 0}, 0.0),
+    # a program that does not count replays, or ran no iteration
+    ({}, {"map.iter": 60}, None),
+    ({"n.map.graphed": 0}, {"n.map.graphed": 0}, None),
+], ids=["replayed", "none-replayed", "not-counted", "no-iterations"])
+def test_map_graphed_pct_reads_the_replayed_share(seconds, calls, want):
+    """benchmark/metrics/map_graphed_pct: 100 × `n.map.graphed` (a
+    counter's sum, under `seconds`) over the calls of `map.iter`."""
+    from benchmark import harness
+    got = harness.read_metric("map_graphed_pct",
+                              _graphed_record(seconds, calls))
+    assert got == (None if want is None else pytest.approx(want))
+
+
 def test_spans_and_counters_of_a_slam_run(tmp_path, monkeypatch):
     """A tiny oracle run with mapping: one `fe.round` a round run, the
     edge counter the edges handed to the rounds, one `map.iter` a mapping
@@ -333,3 +355,6 @@ def test_spans_and_counters_of_a_slam_run(tmp_path, monkeypatch):
     assert "fe.update" not in t.count      # oracle targets: no network
     assert t.count["fe.dba"] + t.count.get("fe.dspo", 0) >= sum(rounds)
     assert "n.sync" not in t.total
+    # the CPU maps eagerly: nothing captured, nothing replayed
+    assert "n.map.graphed" not in t.total
+    assert "n.map.capture" not in t.total

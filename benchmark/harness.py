@@ -5,8 +5,10 @@ Everything that belongs to one cell is found by name: the cell in
 BENCHMARK.json names its configuration (a file under configs/, the SLAM
 configuration as it is run) and its traffic mix (traffic/<name>.json, the
 generator's parameters); workloads/<cell>.json holds what the cell
-itself needs (the frames it renders, the stages its check covers, their
-limits). A per-layer metric is read by metrics/<name>.py.
+itself needs (the frames it renders, the limits of the numbers its check
+reads). A checked stage is stages/<stage>.py, found by the numbers it
+reads; a FLOP term is a table under flop_terms/; a per-layer metric is
+read by metrics/<name>.py.
 
 The window opens at the on_frame that ends the lead-in (the frontend
 initialised, the mapper initialised and two more keyframes mapped) and
@@ -16,6 +18,12 @@ a traced run, at its close); a stage that has not run by the close is
 taken from the loop's next calls, after the window. The loop is ended
 from the hook, so the program's terminate() (final BA, refine,
 evaluations) never runs.
+
+Each run writes its outputs (the program's saved mono priors among them)
+into a directory of its own under $TMPDIR/benchmark, removed when the run
+ends: the program reads a saved prior back where it finds one, and a run
+that found another run's would time a file read in place of the prior
+and track on another scene's depth.
 """
 
 from __future__ import annotations
@@ -25,14 +33,16 @@ import gc
 import importlib
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-from . import check, probes, scene, trace
+from . import check, probes, scene, stages, trace
 from .bounds import PEAK_BF16_FLOPS, launch_bound_ms
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -209,12 +219,23 @@ def run(cell_name, seed, seconds, traced, device, *, root=ROOT,
     configuration (tests shrink it)."""
     t_process = time.time() if t_process is None else t_process
     spec = load_cell(cell_name, root)
+    base = os.path.join(os.environ.get("TMPDIR", "/tmp"), "benchmark")
+    os.makedirs(base, exist_ok=True)
+    out_dir = tempfile.mkdtemp(prefix=cell_name + ".", dir=base)
+    try:
+        return _run(spec, cell_name, seed, seconds, traced, device, root,
+                    t_process, control, overrides, out_dir)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def _run(spec, cell_name, seed, seconds, traced, device, root, t_process,
+         control, overrides, out_dir):
     wl, tr = spec["workload"], spec["traffic"]
-    out_dir = os.path.join(os.environ.get("TMPDIR", "/tmp"),
-                           "benchmark", cell_name)
     cfg = slam_config(spec, out_dir)
     if overrides is not None:
         overrides(cfg, spec)
+    checked = stages.for_limits(wl["limits"])
     n_frames = int(wl["n_frames"])
     images, depths, c2w = scene.render_frames(
         cfg, seed, n_frames, tr["motion_scale"], tr.get("loop_period", 0))
@@ -223,7 +244,7 @@ def run(cell_name, seed, seconds, traced, device, *, root=ROOT,
     from splatslam_tpu_torch.slam import SLAM
     cuda = torch.device(device).type == "cuda"
     slam = SLAM(cfg, device=device, stream=stream)
-    capture = probes.Capture(check.wanted(wl["limits"]), slam.video)
+    capture = probes.Capture(checked, slam.video)
     win = Window(slam, seconds, traced, capture, device, n_frames)
     win.run()
 
@@ -248,7 +269,7 @@ def run(cell_name, seed, seconds, traced, device, *, root=ROOT,
         name = torch.cuda.get_device_name(device) if cuda else "cpu"
         rec = dict(part=dict(window_s=window_s, frames=frames,
                              timers=win.timers), trace=red,
-                   flops=flops["tracking"] + flops["mapping"],
+                   flops=sum(flops.values()), flops_by_kind=flops,
                    launches=launches, peak_flops=PEAK_BF16_FLOPS.get(name),
                    bound_ms=launch_bound_ms)
         for m in spec["bench"]["per_layer"]:
@@ -263,9 +284,8 @@ def run(cell_name, seed, seconds, traced, device, *, root=ROOT,
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
-    from .reference.weights import load_network
-    model = load_network(os.path.join(root, CHECKPOINT), device)
-    values, refs = check.readings(capture.got, model, images, device)
+    ctx = stages.Context(cfg, images, device, os.path.join(root, CHECKPOINT))
+    values, refs = check.readings(capture.got, ctx, checked)
     correct, table = check.judge(values, wl["limits"])
     result["correct"] = correct
     dev = dict(platform="gpu" if cuda else "cpu",
@@ -287,8 +307,7 @@ def run(cell_name, seed, seconds, traced, device, *, root=ROOT,
                           mapped=t["mapped"],
                           loop_closures=t["calls"].get("fe.loop_ba", 0))
     if control:
-        ctl = check.control_readings(capture.got, refs, model, images,
-                                     device)
+        ctl = check.control_readings(capture.got, refs, ctx, checked)
         result["control_correct"], result["control"] = check.judge(
             ctl, wl["limits"])
     result["checks"] = table

@@ -10,6 +10,7 @@ import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -36,7 +37,8 @@ def values(result):
 def test_oracle_cell_agrees_with_the_reference():
     r = run("replica_scale.orbit")
     assert r["correct"]
-    assert set(values(r)) == {"dba_gap", "render_gap", "step_gap"}
+    assert set(values(r)) == {"dba_gap", "render_gap", "step_gap",
+                              "dspo_gap"}
     # the same plain code on the same device: equal to rounding
     v = values(r)
     assert max(v["render_gap"], v["step_gap"]) <= 1e-6, v
@@ -50,7 +52,7 @@ def test_learned_cell_agrees_with_the_reference(f32_net):
     r = run("learned.orbit")
     v = values(r)
     assert set(v) == {"scan_gap", "update_gap", "dba_gap", "render_gap",
-                      "step_gap"}
+                      "step_gap", "dspo_gap"}
     assert r["correct"], v
     # float32 network on both sides; the program keeps features in bf16
     assert v["update_gap"] <= 2e-3 and v["scan_gap"] <= 1e-5, v
@@ -90,6 +92,13 @@ def _half_batch(orig):
     return f
 
 
+def _unchanged_scale_shift(orig):
+    def f(poses, disps, intrinsics, target, weight, eta, mono_disps, scales,
+          shifts, *a, **kw):
+        return disps, scales, shifts
+    return f
+
+
 def _altered_render(orig):
     def f(*a, **kw):
         out = orig(*a, **kw)
@@ -104,6 +113,9 @@ FAULTS = {
                             _unchanged_dba, "dba_gap"),
     "map_state_unchanged": ("splatslam_tpu_torch.mapping.gaussians",
                             "adam_step", _no_adam, "step_gap"),
+    "dspo_state_unchanged": ("splatslam_tpu_torch.ops.ba",
+                             "_scale_shift_iteration",
+                             _unchanged_scale_shift, "dspo_gap"),
     "half_batch": ("splatslam_tpu_torch.mapping.mapper", "mapping_loss",
                    _half_batch, "step_gap"),
     "answer_altered": ("splatslam_tpu_torch.ops.rasterizer",
@@ -178,7 +190,79 @@ def test_flop_model_against_the_programs_counters(cell, f32_net):
     assert 0.0 < mapping < 1.0
 
 
+# a checked stage added as a file: the mono prior's scale and shift fit
+# (ops/ba.align_scale_and_shift), worked out again in float64
+ADDED_STAGE = """
+import torch
+from splatslam_tpu_torch.ops import ba as ba_ops
+from ..check import _bf16, _rel
+from ..probes import clone
+
+NUMBERS = ("added_gap",)
+
+
+def arm(slot, p):
+    def wrap(orig):
+        def f(prediction, target, weights):
+            out = orig(prediction, target, weights)
+            if not slot.full:
+                slot.put(dict(args=clone((prediction, target, weights)),
+                              out=clone(out)))
+            return out
+        return f
+    p.put(ba_ops, "align_scale_and_shift", wrap)
+
+
+def fit(pred, tgt, w):
+    s = lambda x: x.sum((-2, -1))
+    a00, a01, a11 = s(w * pred * pred), s(w * pred), s(w)
+    b0, b1 = s(w * pred * tgt), s(w * tgt)
+    det = a00 * a11 - a01 * a01
+    ok = det > 0
+    det = torch.where(ok, det, torch.ones_like(det))
+    return torch.stack([torch.where(ok, (a11 * b0 - a01 * b1) / det, 0 * det),
+                        torch.where(ok, (a00 * b1 - a01 * b0) / det, 0 * det)])
+
+
+def reference(ctx, cap):
+    pred, tgt, w = cap["args"]
+    return fit(pred.double(), tgt.double(), w.double())
+
+
+def gaps(cap, ref):
+    return {"added_gap": _rel(torch.stack(cap["out"][:2]), ref)}
+
+
+def control(ctx, cap, ref):
+    pred, tgt, w = _bf16(cap["args"])
+    return {"added_gap": _rel(fit(pred, tgt, w.float()), ref)}
+"""
+
+# a FLOP term added as a file, under a kind of its own: the oracle's flow
+# of every frame after the first, so every window counts some
+ADDED_TERMS = """
+from splatslam_tpu_torch.tracking import motion_filter as mf_mod
+from . import Term
+
+
+def oracle_flow(orig, c, add):
+    def f(self, *a, **kw):
+        add(1e3 * c.h8w8)
+        return orig(self, *a, **kw)
+    return f
+
+
+TERMS = [Term(mf_mod.MotionFilter, "_oracle_flow", "added_kind",
+              oracle_flow)]
+"""
+
+
 def test_a_cell_config_traffic_and_metric_added_as_files(tmp_path):
+    """A cell, its configuration, traffic mix and workload file, a
+    per-layer metric, a checked stage with a limit, and a FLOP term, each
+    added as a new file to a copy of the benchmark (no file of it edited),
+    are found and run: the stage's number in `checks` and `correct`, the
+    term's count in the record's `flops`."""
     work = tmp_path / "checkout"
     shutil.copytree(os.path.join(ROOT, "benchmark"), work / "benchmark",
                     ignore=shutil.ignore_patterns("__pycache__"))
@@ -192,19 +276,29 @@ def test_a_cell_config_traffic_and_metric_added_as_files(tmp_path):
         json.dumps(conf))
     (work / "benchmark/traffic/added_mix.json").write_text(
         json.dumps({"motion_scale": 4.0}))
+    wl = json.loads((work / "benchmark/workloads/replica_scale.orbit.json")
+                    .read_text())
+    wl["limits"]["added_gap"] = 1e-3
     (work / "benchmark/workloads/added.cell.json").write_text(
-        (work / "benchmark/workloads/replica_scale.orbit.json").read_text())
-    (work / "benchmark/metrics/added_metric.py").write_text(
-        "def read(rec):\n"
-        "    return 1e3 * rec['part']['timers']['seconds'].get('data', 0.0)"
-        " / rec['part']['frames']\n")
+        json.dumps(wl))
+    (work / "benchmark/stages/added_stage.py").write_text(ADDED_STAGE)
+    (work / "benchmark/flop_terms/added_terms.py").write_text(ADDED_TERMS)
+    metrics = {
+        "added_metric": "1e3 * rec['part']['timers']['seconds']"
+                        ".get('data', 0.0) / rec['part']['frames']",
+        "added_flops": "rec['flops_by_kind']['added_kind']",
+        "added_share": "rec['flops_by_kind']['added_kind'] / rec['flops']",
+    }
+    for name, expr in metrics.items():
+        (work / f"benchmark/metrics/{name}.py").write_text(
+            f"def read(rec):\n    return {expr}\n")
+        b["per_layer"].append(dict(name=name, unit="ms",
+                                   better="lower", source="program_span",
+                                   layer="loop", moves="fps"))
     b["configs"].append(dict(b["configs"][1], name="added_config",
                              file="benchmark/configs/added_config.json"))
     b["workloads"].append(dict(name="added.cell", config="added_config",
                                traffic="added_mix", chips=1, why="a test"))
-    b["per_layer"].append(dict(name="added_metric", unit="ms",
-                               better="lower", source="program_span",
-                               layer="loop", moves="fps"))
     (work / "BENCHMARK.json").write_text(json.dumps(b))
     code = (
         "import json, sys\n"
@@ -213,7 +307,7 @@ def test_a_cell_config_traffic_and_metric_added_as_files(tmp_path):
         "r = harness.run('added.cell', 7, 2.0, True, 'cpu',"
         " root=harness.ROOT, overrides=tiny.shrink)\n"
         "print(json.dumps({'root': harness.ROOT, 'metrics': r['metrics'],"
-        " 'correct': r['correct']}))\n")
+        " 'correct': r['correct'], 'checks': r['checks']}))\n")
     env = dict(os.environ, PYTHONPATH=f"{work}{os.pathsep}{ROOT}",
                OMP_NUM_THREADS="2")
     out = subprocess.run([sys.executable, "-c", code], cwd=work, env=env,
@@ -221,5 +315,43 @@ def test_a_cell_config_traffic_and_metric_added_as_files(tmp_path):
     assert out.returncode == 0, out.stderr[-3000:]
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["root"] == str(work)
-    assert res["correct"]
-    assert res["metrics"]["added_metric"]["value"] >= 0
+    assert res["correct"], res["checks"]
+    row = res["checks"]["added_gap"]
+    assert row["value"] is not None and row["value"] <= row["limit"], row
+    m = {k: v["value"] for k, v in res["metrics"].items()}
+    assert m["added_metric"] >= 0
+    assert m["added_flops"] > 0 and 0 < m["added_share"] <= 1, m
+
+
+def test_each_run_reads_its_own_priors(tmp_path, monkeypatch):
+    """Two runs of one cell in one TMPDIR at two seeds: each run's mono
+    prior of a frame is its own scene's (the oracle prior of the depth
+    that seed renders), not the one an earlier run saved, and each run's
+    output directory is gone when it returns."""
+    from splatslam_tpu_torch import mono_prior
+    monkeypatch.setenv("TMPDIR", str(tmp_path))
+    served = {}
+    call = mono_prior.MonoDepthProvider.__call__
+
+    def spy(self, idx):
+        d = call(self, idx)
+        served.setdefault(int(idx), d)
+        return d
+
+    monkeypatch.setattr(mono_prior.MonoDepthProvider, "__call__", spy)
+    spec = harness.load_cell("replica_scale.orbit")
+    cfg = harness.slam_config(spec, "unused")
+    tiny.shrink(cfg, spec)
+    for seed in (7, 2 ** 31 + 11):
+        served.clear()
+        harness.run("replica_scale.orbit", seed, 2.0, False, "cpu",
+                    overrides=tiny.shrink)
+        assert os.listdir(tmp_path / "benchmark") == []
+        _, depths, _ = harness.scene.render_frames(
+            cfg, seed, max(served) + 1, spec["traffic"]["motion_scale"])
+        assert served
+        for idx, d in served.items():
+            z = depths[idx]
+            mono = np.where(z > 1e-6, 0.5 / np.maximum(z, 1e-6) + 0.2, 0.0)
+            own = np.where(mono > 1e-6, 1.0 / np.maximum(mono, 1e-6), 0.0)
+            assert np.array_equal(d, own), (seed, idx)

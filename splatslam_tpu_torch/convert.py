@@ -73,7 +73,7 @@ def dpt_params_from_numpy(tree: dict, device=None):
     with those weights, in eval mode on `device` (None is the GPU). The
     tree has no `refinenet4.res1` (never run); the module keeps its own."""
     from .models.dpt import (DPTDepthModel, RESNET_DEPTHS,
-                             load_omnidata_state_dict)
+                             load_omnidata_state_dict, reassemble_of)
     device = resolve_device(device)
     sd = {}
 
@@ -130,5 +130,6 @@ def dpt_params_from_numpy(tree: dict, device=None):
                 conv(f"{rp}.{name}.conv1", rf[unit]["conv1"])
                 conv(f"{rp}.{name}.conv2", rf[unit]["conv2"])
         conv(rp + ".out_conv", rf["out_conv"])
-    model = load_omnidata_state_dict(DPTDepthModel(num_blocks=n_blocks), sd)
+    model = load_omnidata_state_dict(
+        DPTDepthModel(num_blocks=n_blocks, reassemble=reassemble_of(sd)), sd)
     return model.to(device).eval()

@@ -10,7 +10,10 @@ RefineNet fusion decoder and a depth head. Channel-first, float32.
 The module tree carries the layout of the omnidata checkpoint
 (`omnidata_dpt_depth_v2.ckpt`: `pretrained.*` + `scratch.*`, timm
 vit_base_r50_s16_384 names), so loading it is `load_state_dict` after the
-lightning 'model.' prefix is stripped. The checkpoint does not ship with
+lightning 'model.' prefix is stripped. The four hooks are reassembled at
+DPT's published widths (256, 512, 768, 768); the JAX package reassembles
+block 8 at 384, and a file of that width loads into a model built at it
+(`reassemble_of`). The checkpoint does not ship with
 the repository; `DPTDepthPredictor` loads it when present, raises a clear
 error when a path is given and missing, and draws seeded weights when the
 path is empty.
@@ -32,6 +35,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .. import resolve_device
+from ..utils import profiling
 
 
 # ---------------------------------------------------------------------------
@@ -278,18 +282,19 @@ class _ProjectReadout(nn.Module):
 
 
 class _Pretrained(nn.Module):
-    def __init__(self, dim, features, num_blocks, patch_grid):
+    def __init__(self, dim, reassemble, num_blocks, patch_grid):
         super().__init__()
         self.model = _ViT(dim, num_blocks, patch_grid)
         # indices as in the checkpoint's nn.Sequential; the entries between
         # them (transpose, unflatten) hold no weights
         self.act_postprocess3 = nn.ModuleDict({
             "0": _ProjectReadout(dim),
-            "3": nn.Conv2d(dim, features * 3 // 2, 1)})
+            "3": nn.Conv2d(dim, reassemble[2], 1)})
         self.act_postprocess4 = nn.ModuleDict({
             "0": _ProjectReadout(dim),
-            "3": nn.Conv2d(dim, dim, 1),
-            "4": nn.Conv2d(dim, dim, 3, stride=2, padding=1)})
+            "3": nn.Conv2d(dim, reassemble[3], 1),
+            "4": nn.Conv2d(reassemble[3], reassemble[3], 3, stride=2,
+                           padding=1)})
 
 
 # ---------------------------------------------------------------------------
@@ -330,9 +335,9 @@ class FeatureFusionBlock(nn.Module):
 
 
 class _Scratch(nn.Module):
-    def __init__(self, dim, features):
+    def __init__(self, reassemble, features):
         super().__init__()
-        for i, cin in ((1, 256), (2, 512), (3, features * 3 // 2), (4, dim)):
+        for i, cin in enumerate(reassemble, 1):
             setattr(self, f"layer{i}_rn",
                     nn.Conv2d(cin, features, 3, padding=1, bias=False))
             # refinenet4 has no skip input: its resConfUnit1 is in the
@@ -348,22 +353,35 @@ class _Scratch(nn.Module):
 
 # parameters the checkpoint holds that no forward pass reads
 UNUSED_PREFIX = "scratch.refinenet4.resConfUnit1."
+# the channels of the four reassembled hooks (stage 0, stage 1, blocks 8
+# and 11): DPT's _make_vit_b_rn50_backbone, features=[256, 512, 768, 768]
+REASSEMBLE = (256, 512, 768, 768)
+
+
+def reassemble_of(sd) -> tuple:
+    """The reassembled widths that a state dict of the omnidata names
+    holds."""
+    return (*REASSEMBLE[:2],
+            *(int(sd[f"pretrained.act_postprocess{i}.3.weight"].shape[0])
+              for i in (3, 4)))
 
 
 class DPTDepthModel(nn.Module):
     """vitb_rn50_384 DPT depth net: (B, 3, H, W) → (B, H, W), H and W
-    multiples of 32. The one width the JAX package has."""
+    multiples of 32. `reassemble`: the hooks' widths; REASSEMBLE is the
+    published network, and other widths exist only to load the JAX
+    package's trees (`reassemble_of`)."""
 
     def __init__(self, features=256, vit_dim=768, num_blocks=12,
-                 patch_grid=24):
+                 patch_grid=24, reassemble=REASSEMBLE):
         super().__init__()
         self.vit_dim = vit_dim
         # the checkpoint-native grid (384/16); resized to the run-time grid
         # like timm's forward_flex
         self.patch_grid = patch_grid
-        self.pretrained = _Pretrained(vit_dim, features, num_blocks,
+        self.pretrained = _Pretrained(vit_dim, reassemble, num_blocks,
                                       patch_grid)
-        self.scratch = _Scratch(vit_dim, features)
+        self.scratch = _Scratch(reassemble, features)
 
     def forward(self, x):
         B, _, H, W = x.shape
@@ -459,15 +477,17 @@ def load_omnidata_state_dict(model: DPTDepthModel, sd: dict):
     return model
 
 
-def load_omnidata_params(path: str, model: DPTDepthModel | None = None):
+def load_omnidata_params(path: str):
     """Load the omnidata checkpoint (`omnidata_dpt_depth_v2.ckpt`, a
-    lightning file or a bare state dict) into a DPTDepthModel."""
+    lightning file or a bare state dict) into a DPTDepthModel built at the
+    file's reassembled widths."""
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     sd = ckpt.get("state_dict", ckpt)
     # strip the lightning 'model.' prefix (mono_estimators.py:38-40)
     if any(k.startswith("model.") for k in sd):
         sd = {k[6:]: v for k, v in sd.items() if k.startswith("model.")}
-    return load_omnidata_state_dict(model or DPTDepthModel(), sd)
+    return load_omnidata_state_dict(
+        DPTDepthModel(reassemble=reassemble_of(sd)), sd)
 
 
 class DPTDepthPredictor:
@@ -479,16 +499,15 @@ class DPTDepthPredictor:
         self.size = size
         self.calls = 0          # predictions made, for a caller's accounting
         self.device = resolve_device(device)    # TF32 off on the GPU
-        self.model = DPTDepthModel()
         if ckpt_path:
             if not os.path.exists(ckpt_path):
                 raise FileNotFoundError(
                     f"omnidata checkpoint not found: {ckpt_path} — "
                     "download omnidata_dpt_depth_v2.ckpt or use "
                     "mono_prior.provider: files/oracle")
-            load_omnidata_params(ckpt_path, self.model)
+            self.model = load_omnidata_params(ckpt_path)
         else:
-            init_seeded(self.model, seed=0)
+            self.model = init_seeded(DPTDepthModel(), seed=0)
         self.model.to(self.device).eval()
 
     @torch.no_grad()
@@ -502,7 +521,12 @@ class DPTDepthPredictor:
 
     @torch.no_grad()
     def __call__(self, image) -> np.ndarray:
+        """One pass, timed from the upload through the host pull as the
+        span `mono.dpt` and counted as `n.mono.dpt`."""
         self.calls += 1
-        H, W = np.shape(image)[:2]
-        d = torch.clamp(self.network_output(image), 0.0, 1.0)
-        return resize(d, (H, W), "bicubic").cpu().numpy()
+        with profiling.span("mono.dpt"):
+            H, W = np.shape(image)[:2]
+            d = torch.clamp(self.network_output(image), 0.0, 1.0)
+            d = resize(d, (H, W), "bicubic").cpu().numpy()
+        profiling.tally("n.mono.dpt", 1)
+        return d

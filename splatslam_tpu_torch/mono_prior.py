@@ -27,6 +27,8 @@ import os
 
 import numpy as np
 
+from .utils import profiling
+
 PROVIDERS = ("files", "oracle", "dpt", "none")
 
 
@@ -104,7 +106,8 @@ class MonoDepthProvider:
             d = self._dpt(np.asarray(color))
         if self.save and (not self._use_disk or not os.path.exists(p)):
             os.makedirs(os.path.dirname(p), exist_ok=True)
-            np.save(p, d)   # overwrites another provider's stale file
+            with profiling.span("mono.save"):
+                np.save(p, d)   # overwrites another provider's stale file
         self._cache[idx] = d
         if len(self._cache) > 64:
             self._cache.pop(next(iter(self._cache)))

@@ -28,6 +28,7 @@ import torch
 from .. import resolve_device
 from ..ops import lie, projective as pops, ba as ba_ops
 from ..ops.upsample import upsample_disp, upsample_disp_uniform
+from ..utils.profiling import tally
 
 # the CUDA kernels use 0.25 (droid_kernels.cu:26); python ops use 0.2
 CUDA_MIN_DEPTH = 0.25
@@ -422,6 +423,9 @@ class DepthVideo:
                     sc, err, s.disps[:curr], s.valid_depth_mask_small[:curr],
                     float(self.mono_thres)).cpu().numpy()
                 bad_frames = set(np.where(bad)[0].tolist())
+                depth_frames = np.unique(ii_np)
+                tally("n.dspo.bad_mono", int(bad[depth_frames].sum()))
+                tally("n.dspo.frames", len(depth_frames))
                 keep = np.asarray([(int(a) not in bad_frames)
                                    and (int(b) not in bad_frames)
                                    for a, b in zip(ii_np, jj_np)], bool)

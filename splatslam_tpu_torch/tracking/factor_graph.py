@@ -398,7 +398,12 @@ class FactorGraph:
                 s.mono_disps, disps, s.valid_depth_mask_small,
                 float(v.mono_thres))
             keep_e = ~bad[edges.ii] & ~bad[edges.jj]
-            if not bool(keep_e.any()):
+            # one host pull: the kept edges, and the depth frames dropped
+            n_kept, n_bad = torch.stack(
+                (keep_e.sum(), bad[kx].sum())).tolist()
+            tally("n.dspo.bad_mono", n_bad)
+            tally("n.dspo.frames", edges.M)
+            if not n_kept:
                 return True, disps
             kept = torch.zeros(edges.M, device=self.device).index_add_(
                 0, edges.kk, keep_e.float()) > 0

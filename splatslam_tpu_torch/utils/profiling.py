@@ -22,6 +22,10 @@ Which metric reads each span and counter (benchmark/metrics/):
   fe.round, n.edges      round_us_per_edge
   fe.*, lc.*             frontend_idle_pct (idle under them)
   n.sync                 host_syncs_per_frame
+  mono.dpt, n.mono.dpt   prior_ms_per_pass, prior_mfu (a DPT pass each)
+  mono.save              none (the prior's .npy write)
+  n.dspo.bad_mono,       none (the share of stage 2's depth frames whose
+  n.dspo.frames            prior fit is bad)
 """
 
 from __future__ import annotations
@@ -43,6 +47,8 @@ SPANS = frozenset({
     "fe.setup", "fe.round", "fe.update", "fe.dba", "fe.dspo", "fe.cull",
     # tracking/backend.py: Backend.ba
     "lc.edges",
+    # models/dpt.py: DPTDepthPredictor.__call__; mono_prior.py
+    "mono.dpt", "mono.save",
 })
 COUNTER_PREFIX = "n."
 SYNCS = "n.sync"      # blocking waits on the device, n.sync.<where> by name

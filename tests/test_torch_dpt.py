@@ -217,7 +217,8 @@ def synthetic_omnidata_sd(seed=11):
     reads (names after the 'model.' strip), with seeded values of the right
     shape, plus the ViT's final norm and head, which the real file holds and
     nobody runs. Names and shapes are written out here, not taken from either
-    package."""
+    package; block 8 is reassembled at the JAX package's 384 channels (the
+    published network's 768 is the port's default)."""
     rng = _rng(seed)
     r = lambda *s, **kw: _rnd(rng, *s, **kw)
     sd = {}
@@ -385,25 +386,28 @@ def test_predictor_matches_jax_predictor(nets, hw):
 
 def test_loader_ignores_unused_and_refuses_missing_or_misshaped(nets):
     sd = synthetic_omnidata_sd()
-    model = tdpt.load_omnidata_state_dict(tdpt.DPTDepthModel(), sd)
+    # a model at the file's widths (384 at block 8, the JAX package's)
+    model_of = lambda: tdpt.DPTDepthModel(reassemble=tdpt.reassemble_of(sd))
+    assert tdpt.reassemble_of(sd) == (256, 512, 384, 768)
+    model = tdpt.load_omnidata_state_dict(model_of(), sd)
     own = model.state_dict()
     assert "pretrained.model.norm.weight" not in own
     k = "scratch.refinenet4.resConfUnit1.conv1.weight"
     np.testing.assert_array_equal(own[k].numpy(), sd[k])
     # refinenet4's first unit may be absent (the Flax tree has none) ...
     tdpt.load_omnidata_state_dict(
-        tdpt.DPTDepthModel(),
+        model_of(),
         {k: v for k, v in sd.items()
          if not k.startswith(tdpt.UNUSED_PREFIX)})
     # ... anything that a forward pass reads may not
     missing = dict(sd)
     del missing["pretrained.model.blocks.8.attn.qkv.bias"]
     with pytest.raises(KeyError, match="blocks.8.attn.qkv.bias"):
-        tdpt.load_omnidata_state_dict(tdpt.DPTDepthModel(), missing)
+        tdpt.load_omnidata_state_dict(model_of(), missing)
     bad = dict(sd)
     bad["scratch.layer3_rn.weight"] = np.zeros((256, 768, 3, 3), np.float32)
     with pytest.raises(ValueError, match="layer3_rn"):
-        tdpt.load_omnidata_state_dict(tdpt.DPTDepthModel(), bad)
+        tdpt.load_omnidata_state_dict(model_of(), bad)
 
 
 def test_port_tree_is_the_flax_tree(nets):

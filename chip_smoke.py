@@ -41,10 +41,12 @@ runs the port in a child process has the child hold the same check:
      held against their plain PyTorch versions on the card, then timed
      with CUDA events (warm-up, median of 10), B1 with and without
      n_touched; then the same on one camera of that input, the grid of most
-     of the main path's launches;
+     of the main path's launches; then DSPO stage 2's kernels (csrc/dspo.cu:
+     the iteration and the multiview filter) at the cells' shapes against
+     their plain versions, and timed beside them (dspo_phase);
   4. main path: configs/Synthetic/replica_scale.yaml through the port's
      SLAM at full width and full depth, with every kernel launch count
-     reset just before and read just after;
+     reset just before and read just after (each must be non-zero);
   5. the kernel phase again on the main path's own final keyframe window
      (its map, cameras and tile lists as map_step_n bins them), so the
      kernels are also checked and timed at the density the path runs;
@@ -605,6 +607,92 @@ def kernel_phase(label, packets, tile_ids, counts, ntx, time_flags=None,
     }
 
 
+def dspo_phase(dev):
+    """DSPO stage 2's kernels (csrc/dspo.cu) at the cells' shapes
+    (tests/dspo_cases.py): an iteration on replica_scale's round (40x80,
+    E 100, M 40, buffer 400) and on a learned-shaped loop-closure round
+    (48x64, E 169, M 28, buffer 600), the filter on a round's frames at 1/8
+    resolution and on 5 frames at 320x640. Each is held against its plain
+    version on the card as tests/test_torch_cuda.py holds it (an iteration
+    within twice the float32 plain version's distance from a float64 run,
+    plus 1e-6; the filter's counts equal), then timed by CUDA events beside
+    the plain version and its bound. Returns the measurements."""
+    import torch
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from dspo_cases import make_filter_problem, make_problem
+    from splatslam_tpu_torch import resolve_device
+    from splatslam_tpu_torch.ops import ba, dspo_cuda
+    from splatslam_tpu_torch.tracking import depth_video as dv
+    dev = resolve_device(dev)
+    keys = ("poses", "disps", "intrinsics", "target", "weight", "eta",
+            "mono_disps", "scales", "shifts", "valid_depth_mask")
+
+    def on(p, dtype=torch.float32):
+        e = p["edges"]
+        args = [p[k].to(dev) if p[k].dtype == torch.bool
+                else p[k].to(dev, dtype) for k in keys]
+        mask = None if p["kx_mask"] is None else p["kx_mask"].to(dev)
+        return (*args, ba.make_edges(e.ii, e.jj, e.t0, e.t1, dev), p["lm"],
+                p["ep"], p["alpha"], mask)
+
+    out = {}
+    for label, name, buffer in (("replica round", "replica", 400),
+                                ("loop round", "loop", 600)):
+        args = on(make_problem(name, buffer=buffer))
+        got = ba._scale_shift_iteration(*args)
+        plain = ba._scale_shift_iteration_torch(*args)
+        exact = ba._scale_shift_iteration_torch(
+            *on(make_problem(name, buffer=buffer), torch.float64))
+        errs = [(float((g.double() - x).abs().max()),
+                 float((q.double() - x).abs().max()))
+                for g, q, x in zip(got, plain, exact)]
+        ok = all(e_k <= 2 * e_p + 1e-6 for e_k, e_p in errs)
+        log(f"DSPO iteration, {label}: |kernel - f64| / |plain - f64| "
+            "(disps, scales, shifts) " + ", ".join(
+                f"{e_k:.3e} / {e_p:.3e}" for e_k, e_p in errs) + f" {ok}")
+        if not ok:
+            raise SystemExit(f"the DSPO iteration disagrees with its plain "
+                             f"version ({label})")
+        edges = args[10]
+        B, h, w = args[1].shape
+        ms = cuda_ms(lambda: ba._scale_shift_iteration(*args))
+        ms_p = cuda_ms(lambda: ba._scale_shift_iteration_torch(*args))
+        bound, by = dspo_cuda.kernel_bounds(
+            len(edges.ii), edges.M, B, h * w)["scale_shift_iteration"]
+        log(f"DSPO iteration, {label} (E {len(edges.ii)}, M {edges.M}, "
+            f"{h}x{w}, buffer {B}): kernel {ms:.4f} ms, plain {ms_p:.3f} ms, "
+            f"bound {bound:.4f} ms by {by}")
+        out[label] = dict(max_abs_err=max(float((g - q).abs().max())
+                                          for g, q in zip(got, plain)),
+                          ms=ms, plain_ms=ms_p, bound_ms=bound, bound_by=by)
+    for label, name in (("filter 1/8", "eighth"), ("filter full", "full")):
+        f = {k: v.to(dev) for k, v in make_filter_problem(name).items()}
+        args = (f["poses"], f["disps"], f["intrinsics"], f["inds"],
+                f["thresh"])
+        got = dv.depth_filter(*args)
+        plain = dv.depth_filter_torch(*args)
+        n_diff = int((got != plain).sum())
+        log(f"depth filter, {label}: {n_diff} of {got.numel()} counts "
+            "differ from the plain version's")
+        if n_diff:
+            raise SystemExit(f"the depth filter disagrees with its plain "
+                             f"version ({label})")
+        num, h, w = f["disps"].shape
+        nb = f["inds"][:, None] + torch.tensor([0, -1, -2, -3, 3, 4, 5],
+                                               device=dev)
+        rows = int(torch.unique(nb[(nb >= 0) & (nb < num)]).numel())
+        ms = cuda_ms(lambda: dv.depth_filter(*args))
+        ms_p = cuda_ms(lambda: dv.depth_filter_torch(*args))
+        bound, by = dspo_cuda.kernel_bounds(
+            0, 0, 0, h * w, len(f["inds"]), rows)["depth_filter"]
+        log(f"depth filter, {label} ({len(f['inds'])} frames of {h}x{w}): "
+            f"kernel {ms:.4f} ms, plain {ms_p:.3f} ms, bound {bound:.4f} ms "
+            f"by {by}")
+        out[label] = dict(max_abs_err=0.0, ms=ms, plain_ms=ms_p,
+                          bound_ms=bound, bound_by=by)
+    return out
+
+
 def window_input(slam, rows=slice(None)):
     """Packets and tile lists of the main path's final keyframe window (its
     `rows`), as map_step_n's loop makes them: (packets, tile_ids, counts,
@@ -642,7 +730,7 @@ def main_path(dev):
     import torch
     from splatslam_tpu_torch import slam as slam_mod
     from splatslam_tpu_torch.config import load_config
-    from splatslam_tpu_torch.ops import raster_cuda, rasterizer as R
+    from splatslam_tpu_torch.ops import dspo_cuda, raster_cuda, rasterizer as R
 
     cfg = load_config(os.path.join(HERE, "configs/Synthetic/replica_scale.yaml"),
                       os.path.join(HERE, "configs/splat_slam.yaml"))
@@ -658,6 +746,7 @@ def main_path(dev):
         f"{mp['final_refine_iters']} frames {cfg['synthetic']['n_frames']}")
 
     raster_cuda.reset_launch_counts()
+    dspo_cuda.reset_launch_counts()
     for k in R.plain_calls:
         R.plain_calls[k] = 0
     t0 = time.perf_counter()
@@ -665,7 +754,7 @@ def main_path(dev):
     res = slam.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = dict(raster_cuda.launches)
+    counts = dict(raster_cuda.launches) | dict(dspo_cuda.launches)
     plain = dict(R.plain_calls)
     log(f"main path: frames {res['n_frames']} keyframes {res['n_keyframes']} "
         f"mapped {len(slam.mapper.viewpoints)} wall {wall:.1f} s fps "
@@ -2537,8 +2626,10 @@ def main(argv=None):
         x[:1].contiguous() if torch.is_tensor(x) else x for x in inputs])
     if args.sweep_pixels_per_thread:
         sweep_pixels_per_thread(*inputs)
+    dspo = phase("DSPO kernel phase", dspo_phase, dev)
     if args.kernels_only:
-        log(json.dumps(dict(kernel_phase=cloud, one_camera=single)))
+        log(json.dumps(dict(kernel_phase=cloud, one_camera=single,
+                            dspo=dspo)))
         return 0
     counts, slam = phase("main path", main_path, dev)
     window = window_phase("final window", slam)
@@ -2594,6 +2685,13 @@ def main(argv=None):
             **{label.replace(" ", "_"): {k: v for k, v in c[name].items()
                                          if k != "library_ms"}
                for label, c in profiler_clouds.items()}))
+    for label, m in dspo.items():
+        kernels.append(dict(
+            name="depth_filter" if label.startswith("filter")
+            else "scale_shift_iteration", input=label, route="cuda",
+            source="splatslam_tpu_torch/csrc/dspo.cu", replaces=None,
+            launches=counts["scale_shift_iteration" if "round" in label
+                            else "depth_filter"], **m))
     refuse_jax()
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,8 @@ of splatslam_tpu/ops/ba.py).
   * stage-1 "pose_depth" DBA: Gauss-Newton over keyframe poses and 1/8-res
     disparities, depth eliminated by a Schur complement;
   * stage-2 "depth_scale" BA: disparities plus a per-frame mono-prior
-    scale/shift, poses frozen — M independent 2×2 Schur systems;
+    scale/shift, poses frozen — M independent 2×2 Schur systems (on the
+    card one kernel launch an iteration, csrc/dspo.cu);
   * the damped Cholesky solve that returns zeros when it fails.
 
 Edge sets are exact-size (`EdgeSet`): the JAX package pads them into shape
@@ -23,8 +24,10 @@ import dataclasses
 
 import torch
 
+from . import dspo_cuda
 from . import lie
 from . import projective as pops
+from ..utils.profiling import tally
 
 
 @dataclasses.dataclass
@@ -40,6 +43,8 @@ class EdgeSet:
     kk: torch.Tensor
     t0: int
     t1: int
+    _by_frame: tuple | None = dataclasses.field(default=None, repr=False,
+                                                compare=False)
 
     @property
     def P(self):
@@ -48,6 +53,17 @@ class EdgeSet:
     @property
     def M(self):
         return self.kx.shape[0]
+
+    def by_frame(self):
+        """(order (E,), offsets (M+1,)): the edges sorted by kk, stably
+        (each depth frame's edges keep their order), and where each
+        frame's run starts in that order. Made on the edges' device
+        without a host sync, once per edge set."""
+        if self._by_frame is None:
+            kk_sorted, order = torch.sort(self.kk, stable=True)
+            self._by_frame = (order, torch.searchsorted(
+                kk_sorted, torch.arange(self.M + 1, device=self.kk.device)))
+        return self._by_frame
 
 
 def make_edges(ii, jj, t0: int, t1: int, device=None) -> EdgeSet:
@@ -284,7 +300,25 @@ def _scale_shift_iteration(poses, disps, intrinsics, target, weight, eta,
                            edges: EdgeSet, lm=1e-4, ep=0.1, alpha=0.01,
                            kx_mask=None):
     """One GN iteration of stage-2 DSPO; returns new (disps, scales,
-    shifts). kx_mask (M,) bool: depth frames whose updates apply."""
+    shifts), out of place. kx_mask (M,) bool: depth frames whose updates
+    apply. CPU tensors take the plain version below, CUDA tensors the
+    kernel (csrc/dspo.cu); `n.dspo.iter` counts the calls, `n.dspo.kernel`
+    the launches."""
+    tally("n.dspo.iter", 1)
+    args = (poses, disps, intrinsics, target, weight, eta, mono_disps,
+            scales, shifts, valid_depth_mask, edges, lm, ep, alpha, kx_mask)
+    if disps.device.type == "cpu":
+        return _scale_shift_iteration_torch(*args)
+    out = dspo_cuda.scale_shift_iteration(*args)
+    tally("n.dspo.kernel", 1)
+    return out
+
+
+def _scale_shift_iteration_torch(poses, disps, intrinsics, target, weight,
+                                 eta, mono_disps, scales, shifts,
+                                 valid_depth_mask, edges: EdgeSet, lm=1e-4,
+                                 ep=0.1, alpha=0.01, kx_mask=None):
+    """The plain version of _scale_shift_iteration."""
     h, w_ = disps.shape[-2:]
     HW = h * w_
     M, kx = edges.M, edges.kx

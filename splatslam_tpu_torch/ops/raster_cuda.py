@@ -35,7 +35,8 @@ from pathlib import Path
 import torch
 
 _SRC = Path(__file__).resolve().parents[1] / "csrc" / "composite.cu"
-SOURCES = (_SRC,)        # every CUDA source the port builds
+DSPO_SRC = _SRC.with_name("dspo.cu")      # ops/dspo_cuda.py
+SOURCES = (_SRC, DSPO_SRC)        # every CUDA source the port builds
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]

@@ -14,7 +14,8 @@ them. `convert.video_state_from_numpy` permutes a JAX state across.
 
 Geometric kernels of the reference CUDA ops, in plain PyTorch:
   * frame_distance — droid_kernels.cu frame_distance (flow-distance metric)
-  * depth_filter   — droid_kernels.cu depth_filter (multiview consistency)
+  * depth_filter   — droid_kernels.cu depth_filter (multiview consistency;
+                     on the card the kernel of csrc/dspo.cu)
   * reproject      — projective_transform of frames ii into frames jj
 """
 
@@ -26,7 +27,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..ops import lie, projective as pops, ba as ba_ops
+from ..ops import lie, projective as pops, ba as ba_ops, dspo_cuda
 from ..ops.upsample import upsample_disp, upsample_disp_uniform
 from ..utils.profiling import tally
 
@@ -127,7 +128,16 @@ def depth_filter(poses, disps, intrinsics, inds, thresh):
     """Multiview consistency counter: for each frame ix in `inds` and each
     neighbour jx ∈ {ix−1, ix−2, ix−3, ix+3, ix+4, ix+5}, count whether the
     reprojected inverse depth agrees with any of the 4 integer-neighbour
-    disparities within thresh. Returns (len(inds), h, w) float counts."""
+    disparities within thresh. Returns (len(inds), h, w) float counts. CPU
+    tensors take the plain version below, CUDA tensors the kernel
+    (csrc/dspo.cu)."""
+    if disps.device.type == "cpu":
+        return depth_filter_torch(poses, disps, intrinsics, inds, thresh)
+    return dspo_cuda.depth_filter(poses, disps, intrinsics, inds, thresh)
+
+
+def depth_filter_torch(poses, disps, intrinsics, inds, thresh):
+    """The plain version of depth_filter."""
     num, h, w = disps.shape
     fx, fy, cx, cy = intrinsics.unbind(0)
     grid = pops.coords_grid(h, w, device=disps.device)

@@ -26,6 +26,8 @@ Which metric reads each span and counter (benchmark/metrics/):
   mono.save              none (the prior's .npy write)
   n.dspo.bad_mono,       none (the share of stage 2's depth frames whose
   n.dspo.frames            prior fit is bad)
+  n.dspo.iter,           dspo_kernel_pct (stage-2 iterations, and those
+  n.dspo.kernel            that ran as the kernel of csrc/dspo.cu)
 """
 
 from __future__ import annotations

@@ -27,7 +27,13 @@ torch and the port only, so it runs on a GPU machine without jax:
   * the mapper's graph path: 20 replayed iterations against the eager
     ones (crossing rebins, a camera-count change and a replaced map), one
     capture per key, no host sync in a replay, and B1/B2 launch records
-    that pair with the device trace's launches (the kernel rooflines).
+    that pair with the device trace's launches (the kernel rooflines);
+  * DSPO stage 2's kernels (csrc/dspo.cu) against their plain versions on
+    the inputs of tests/dspo_cases.py (the cells' shapes and the hard
+    cases): an iteration within twice the float32 plain version's distance
+    from a float64 run (+1e-6), the same frames rejected; the multiview
+    count equal; and one update_rounds call with stage-1 and stage-2
+    rounds on the card against the CPU (atol 2e-4 / rtol 1e-3).
 """
 
 import numpy as np
@@ -473,3 +479,131 @@ def test_graphed_segments_keep_the_kernel_rooflines_readable():
         records = [x for x in launches if x[0] == name]
         assert len(records) == 20
         assert len(red["launches"][name]) == len(records), name
+
+
+# -- DSPO stage 2's kernels (csrc/dspo.cu) -----------------------------------
+
+def _dspo_to(p, dev, dtype=None):
+    """A dspo_cases problem on `dev`, its float tensors in `dtype` if
+    given, its edge set rebuilt there."""
+    from splatslam_tpu_torch.ops import ba
+    e = p["edges"]
+    out = {k: (v.to(dev) if v.dtype == torch.bool or dtype is None
+               else v.to(dev, dtype)) if torch.is_tensor(v) else v
+           for k, v in p.items() if k != "edges"}
+    out["edges"] = ba.make_edges(e.ii, e.jj, e.t0, e.t1, dev)
+    return out
+
+
+def _dspo_args(p):
+    return [p[k] for k in ("poses", "disps", "intrinsics", "target",
+                           "weight", "eta", "mono_disps", "scales", "shifts",
+                           "valid_depth_mask", "edges", "lm", "ep", "alpha")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["replica", "loop", "hard", "singular",
+                                  "nonfinite"])
+def test_scale_shift_kernel_matches_plain(name):
+    """One stage-2 iteration through the kernel against the plain version
+    on the card and a float64 run of it: the same frames rejected, the rows
+    outside kx copied, and every output within the float32 plain
+    version's own distance from the float64 run (twice it, plus 1e-6)."""
+    _need_cuda()
+    from dspo_cases import make_problem
+    from splatslam_tpu_torch.ops import ba, dspo_cuda
+    p = _dspo_to(make_problem(name), "cuda")
+    p64 = _dspo_to(make_problem(name), "cuda", torch.float64)
+    dspo_cuda.reset_launch_counts()
+    got = ba._scale_shift_iteration(*_dspo_args(p), kx_mask=p["kx_mask"])
+    assert dspo_cuda.launches == {"scale_shift_iteration": 1,
+                                  "depth_filter": 0}
+    plain = ba._scale_shift_iteration_torch(*_dspo_args(p),
+                                            kx_mask=p["kx_mask"])
+    exact = ba._scale_shift_iteration_torch(*_dspo_args(p64),
+                                            kx_mask=p64["kx_mask"])
+    kx = p["edges"].kx
+    out = torch.ones(p["disps"].shape[0], dtype=torch.bool, device="cuda")
+    out[kx] = False
+    ins = (p["disps"], p["scales"], p["shifts"])
+    moved = [o[kx] != i[kx] for o, i in zip((got[1], plain[1]), ins[1:2] * 2)]
+    assert torch.equal(*moved) and bool(moved[0].any())
+    for label, g, q, x, i in zip(("disps", "scales", "shifts"), got, plain,
+                                 exact, ins):
+        assert torch.equal(g[out], i[out]), label
+        e_k = float((g.double() - x).abs().max())
+        e_p = float((q.double() - x).abs().max())
+        print(f"{name} {label}: kernel-plain "
+              f"{float((g - q).abs().max()):.3e}, kernel-f64 {e_k:.3e}, "
+              f"plain-f64 {e_p:.3e}")
+        assert e_k <= 2 * e_p + 1e-6, (label, e_k, e_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["eighth", "full"])
+def test_depth_filter_kernel_matches_plain(name):
+    """The multiview count through the kernel against the plain version
+    on the card, at 1/8 and at full resolution, frames at the buffer's
+    ends among them (neighbours outside it) and reprojections that leave
+    the image."""
+    _need_cuda()
+    from dspo_cases import make_filter_problem
+    from splatslam_tpu_torch.ops import dspo_cuda
+    from splatslam_tpu_torch.tracking import depth_video as dv
+    f = {k: v.cuda() for k, v in make_filter_problem(name).items()}
+    args = (f["poses"], f["disps"], f["intrinsics"], f["inds"], f["thresh"])
+    dspo_cuda.reset_launch_counts()
+    got = dv.depth_filter(*args)
+    assert dspo_cuda.launches == {"scale_shift_iteration": 0,
+                                  "depth_filter": 1}
+    plain = dv.depth_filter_torch(*args)
+    diff = (got - plain).abs()
+    print(f"{name}: {int((diff > 0).sum())} of {diff.numel()} counts "
+          f"differ, by at most {float(diff.max()):g}")
+    assert torch.equal(got, plain)
+
+
+@pytest.mark.cuda
+def test_update_rounds_gpu_matches_cpu():
+    """One update_rounds call of the learned tracker (float32, TF32 off)
+    with two stage-1 and two stage-2 rounds, the bad-mono test on, on the
+    card (stage 2 through the kernels) against the CPU (plain versions):
+    the network parity tolerance (atol 2e-4 / rtol 1e-3) carried through
+    four rounds."""
+    _need_cuda()
+    from splatslam_tpu_torch.ops import dspo_cuda, lie
+    from splatslam_tpu_torch.tracking.factor_graph import FactorGraph
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    outs, launched = {}, {}
+    for dev in ("cpu", "cuda"):
+        ds, model, video, mf, frames, intr = _tracker(dev, -1.0)
+        for k in range(1, 8):
+            assert mf.track(float(k), frames[k], intr)
+        s = video.state
+        # GT poses and disparities: both stage-2 rounds run, one of their
+        # depth frames bad-mono (the multiview threshold of tests/tiny.py)
+        for k in range(8):
+            s.poses[k] = torch.as_tensor(lie.from_matrix_np(
+                np.linalg.inv(ds[k][3]) @ ds[0][3]), device=dev)
+            s.disps[k] = torch.as_tensor(
+                1.0 / np.maximum(ds[k][2][3::8, 3::8][:8, :12], 1e-6),
+                device=dev)
+        video.mono_thres = 0.5
+        video.cfg["tracking"]["multiview_filter"]["thresh"] = 1.0
+        g = FactorGraph(video, model, max_factors=48)
+        g.add_neighborhood_factors(0, 8, r=2)
+        dspo_cuda.reset_launch_counts()
+        g.update_rounds(("pose_depth", "depth_scale") * 2, t0=2,
+                        use_inactive=True)
+        launched[dev] = dict(dspo_cuda.launches)
+        outs[dev] = (s.poses[:8], s.disps[:8], s.depth_scale[:8],
+                     s.depth_shift[:8])
+    assert launched["cpu"] == {"scale_shift_iteration": 0, "depth_filter": 0}
+    assert launched["cuda"] == {"scale_shift_iteration": 4,
+                                "depth_filter": 2}
+    for name, c, k in zip(("poses", "disps", "scales", "shifts"),
+                          outs["cpu"], outs["cuda"]):
+        print(f"{name}: max|cuda-cpu| {float((k.cpu() - c).abs().max()):.3e}")
+        torch.testing.assert_close(k.cpu(), c, atol=2e-4, rtol=1e-3,
+                                   msg=lambda m: f"{name}: {m}")

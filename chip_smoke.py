@@ -9,7 +9,6 @@
     python3 chip_smoke.py --multidevice-only  # phases 1-2 and 14 only (on
         # a machine with several cards, phase 14 also splits over them)
     python3 chip_smoke.py --profilers-only # phases 1-2 and 18 only
-    python3 chip_smoke.py --bench-only     # phases 1-2 and 19 only
     python3 chip_smoke.py --judge-only CKPT [--judge-ref REF]  # phases 1-2,
         # then the tools and smoke.yaml on REF (default the shipped
         # pretrained/droid_dba.msgpack) and on CKPT side by side
@@ -30,8 +29,7 @@ Phases, each unguarded (any failure exits non-zero). Before each phase both
 TF32 switches (torch.backends.cuda.matmul.allow_tf32, cudnn.allow_tf32) are
 turned on, and after it both must be off: each phase shows that the port's
 entry point it goes through (resolve_device) switched them off; a phase on
-objects an earlier phase built resolves its device itself, and a phase that
-runs the port in a child process has the child hold the same check:
+objects an earlier phase built resolves its device itself:
   1. the card's name and power limit (nvidia-smi);
   2. build of every CUDA source under splatslam_tpu_torch/csrc/ (one nvcc
      per source, all started together);
@@ -174,19 +172,7 @@ runs the port in a child process has the child hold the same check:
      The main path (phase 4) and every SLAM path also print the run's
      achieved-FLOP counters (`flops_tracking`, `flops_mapping`) and their
      sum over the run's wall;
- 19. bench phase: `python -m splatslam_tpu_torch.bench` (the port's
-     bench.py: its modes and lines) as a subprocess over its four
-     modes, cut to 24 measured frames, a 6-frame prime and 32 refinement
-     iterations (BENCH_CUT), on the kernels phase 2 built; gates: exit 0,
-     every stdout line JSON, a final line for each mode without `error`,
-     kf-ATE <= 0.01 (oracle) and <= 0.25 (learned), achieved_tflops > 0,
-     0 < mfu < 1.05, prime_ok, the probe names this card, the oracle final
-     last, and both kernels launched and no plain compositor in each
-     mode's measured run (the bench's `launches` events); then a short run
-     cut by SIGTERM must print the partial line, then the last final, and
-     exit 0. Its lines are kept in bench.out and bench.err beside the
-     paths' outputs;
- 20. the kernels JSON line, then the device JSON line last.
+ 19. the kernels JSON line, then the device JSON line last.
 
 `--judge-only CKPT` (a tracker checkpoint, e.g. one train_droid wrote) runs
 the build, then for the reference (`--judge-ref REF`, default
@@ -226,8 +212,8 @@ phase 12 needs cv2.
 13-17, `--train-only` phases 3-12 and 14-17, `--last-only` phases 3 and 5-13
 but runs phase 4 (the input of phase 14) and phase 7's learned path (whose
 hook and loop_ba calls phases 15 and 16 read) without their kernel checks,
-`--multidevice-only` runs phase 4 and phase 14, `--profilers-only` phase 18,
-`--bench-only` phase 19 (none of them prints the kernels line).
+`--multidevice-only` runs phase 4 and phase 14, `--profilers-only` phase 18
+(none of them prints the kernels line).
 
 Exits non-zero without printing a result when no CUDA device is present,
 or when the port's package is not beside this script.
@@ -239,7 +225,6 @@ import hashlib
 import json
 import math
 import os
-import signal
 import subprocess
 import sys
 import time
@@ -289,43 +274,19 @@ def tf32_flags():
             torch.backends.cudnn.allow_tf32)
 
 
-def phase(label, fn, *args, in_child=False, **kw):
+def phase(label, fn, *args, **kw):
     """Run one phase with both TF32 switches turned on first; they must be
-    off when it ends (its entry into the port switched them off). With
-    `in_child` the phase runs the port in a child process that holds the
-    same check itself (TF32_CHILD)."""
+    off when it ends (its entry into the port switched them off)."""
     import torch
     torch.backends.cuda.matmul.allow_tf32 = True
     torch.backends.cudnn.allow_tf32 = True
     out = fn(*args, **kw)
-    if not in_child and any(tf32_flags()):
+    if any(tf32_flags()):
         raise SystemExit(f"{label}: TF32 still on after the phase (matmul, "
                          f"cudnn) = {tf32_flags()}: its entry point did "
                          "not switch it off")
-    log(f"TF32 check: {label}: on before, "
-        + ("checked in the child" if in_child else "off after"))
+    log(f"TF32 check: {label}: on before, off after")
     return out
-
-
-# `python -c TF32_CHILD MODULE ARGS...` is `python -m MODULE ARGS...` with
-# both TF32 switches on at the start; when the module ends they must be
-# off (its entry point switched them), else the child exits 3
-TF32_CHILD = """import runpy, sys, torch
-torch.backends.cuda.matmul.allow_tf32 = True
-torch.backends.cudnn.allow_tf32 = True
-mod = sys.argv[1]
-sys.argv = [mod] + sys.argv[2:]
-try:
-    runpy.run_module(mod, run_name="__main__", alter_sys=True)
-    code = 0
-except SystemExit as e:
-    code = e.code
-on = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-if any(on):
-    print(f"{mod} ended with TF32 on: {on}", file=sys.stderr)
-    sys.exit(3)
-sys.exit(code)
-"""
 
 
 def flops_line(label, video, wall):
@@ -2347,136 +2308,6 @@ def profilers_phase(dev):
     return counts, clouds
 
 
-# ---------------------------------------------------------------------------
-# phase 19: the benchmark
-# ---------------------------------------------------------------------------
-
-# the bench's four modes cut to 24 measured frames (the smoke scenes' 40,
-# replica_scale's 60 at the bench's defaults), a 6-frame prime and 32 final
-# refinement iterations: widths, capacities and windows stay the configs'
-BENCH_CUT = {"BENCH_FRAMES": "24", "BENCH_PRIME_FRAMES": "6",
-             "BENCH_REFINE": "32"}
-BENCH_MODES = ("learned", "oracle", "replica_scale", "dpt")
-# kf-ATE gates of PERF.md §2 by mode (the oracle and learned paths' own)
-BENCH_ATE = {"oracle": 0.01, "learned": 0.25}
-
-
-def bench_env(**kw):
-    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
-    env.update(BENCH_OUT=os.path.join(HERE, "chiprun_out", "bench"), **kw)
-    return env
-
-
-def bench_lines(text, label):
-    try:
-        return [json.loads(x) for x in text.splitlines()]
-    except json.JSONDecodeError as e:
-        raise SystemExit(f"{label}: a stdout line is not JSON: {e}")
-
-
-def bench_phase():
-    """Phase 19: `python -m splatslam_tpu_torch.bench` as a subprocess over
-    its four modes at BENCH_CUT, on the kernels already built; its stdout
-    and stderr go to bench.out and bench.err beside the paths' outputs.
-    Gates: exit 0, every
-    stdout line JSON, one final line a mode without `error`, kf-ATE gates,
-    achieved_tflops > 0 and 0 < mfu < 1.05, prime_ok, the probe names this
-    card, the last line is the oracle final, and in each mode's measured
-    run (the bench's `launches` events, counted from 0 just before it) both
-    kernels launched and no plain compositor ran. Then a short run (two
-    oracle modes, 8 frames, no prime) gets SIGTERM after its second mode's
-    first partial line: exit 0, that mode's partial line, then the first
-    mode's final. Returns the launch counts summed over the four modes."""
-    import torch
-    log(f"bench phase, card: {card_line()}; cut: {BENCH_CUT}")
-    torch.cuda.empty_cache()
-    out_dir = os.path.join(HERE, "chiprun_out")
-    os.makedirs(out_dir, exist_ok=True)
-    t0 = time.perf_counter()
-    # TF32_CHILD: `python -m splatslam_tpu_torch.bench` that exits 3 if the
-    # bench ends with TF32 on
-    r = subprocess.run([sys.executable, "-c", TF32_CHILD,
-                        "splatslam_tpu_torch.bench"],
-                       cwd=HERE, env=bench_env(**BENCH_CUT),
-                       capture_output=True, text=True, timeout=600)
-    wall = time.perf_counter() - t0
-    for ext, text in (("out", r.stdout), ("err", r.stderr)):
-        with open(os.path.join(out_dir, f"bench.{ext}"), "w") as f:
-            f.write(text)
-    log(f"bench: exit {r.returncode} in {wall:.1f} s; stderr tail:\n"
-        + "\n".join(r.stderr.splitlines()[-5:]))
-    lines = bench_lines(r.stdout, "bench")
-    finals = {}
-    for x in lines:
-        if not x.get("partial", True) or "error" in x:
-            finals.setdefault(x["metric"], x)
-    for x in finals.values():
-        log("bench final: " + json.dumps(
-            {k: v for k, v in x.items() if k not in ("phases", "probe")}))
-    log("bench probe: " + json.dumps(lines[-1].get("probe")))
-    events = [json.loads(x) for x in r.stderr.splitlines()
-              if x.startswith('{"event"')]
-    launches = {e["mode"]: e for e in events if e["event"] == "launches"}
-    log("bench launches: " + json.dumps(launches))
-    if r.returncode != 0:
-        raise SystemExit(f"bench exited {r.returncode}")
-    card = card_line().split(",")[0].strip()
-    counts = {"composite_fwd": 0, "composite_bwd": 0}
-    for mode in BENCH_MODES:
-        f = finals.get(f"e2e_fps_synthetic_{mode}")
-        if f is None or f["partial"] or "error" in f:
-            raise SystemExit(f"bench: no final line for {mode}: {f}")
-        if mode in BENCH_ATE and not f["kf_ate_rmse"] <= BENCH_ATE[mode]:
-            raise SystemExit(f"bench {mode}: kf-ATE {f['kf_ate_rmse']} above "
-                             f"{BENCH_ATE[mode]}")
-        if not (f.get("achieved_tflops", 0) > 0
-                and 0 < f.get("mfu", 0) < 1.05 and f["prime_ok"]):
-            raise SystemExit(f"bench {mode}: achieved_tflops/mfu/prime_ok "
-                             f"out of range: {f}")
-        if f["probe"]["device"] != card:
-            raise SystemExit(f"bench probe names {f['probe']['device']}, "
-                             f"not {card}")
-        e = launches.get(mode, {})
-        if min(e.get(k, 0) for k in counts) <= 0 or any(
-                e.get("plain", {}).values()):
-            raise SystemExit(f"bench {mode}: a kernel never launched or a "
-                             f"plain compositor ran: {e}")
-        for k in counts:
-            counts[k] += e[k]
-    if lines[-1]["metric"] != "e2e_fps_synthetic_oracle" or \
-            lines[-1]["partial"]:
-        raise SystemExit(f"bench: the last line is not the oracle final: "
-                         f"{lines[-1]}")
-
-    p = subprocess.Popen(
-        [sys.executable, "-m", "splatslam_tpu_torch.bench"], cwd=HERE,
-        env=bench_env(BENCH_MODES="oracle,oracle", BENCH_FRAMES="8",
-                      BENCH_PRIME="0", BENCH_REFINE="8",
-                      BENCH_TUNNEL_PROBE_S="0"),
-        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
-    try:
-        seen = []
-        for raw in p.stdout:
-            seen.append(json.loads(raw))
-            if len(seen) >= 2 and seen[-2]["partial"] is False:
-                break
-        p.send_signal(signal.SIGTERM)
-        rest, _ = p.communicate(timeout=120)
-    finally:
-        p.kill()
-        p.wait(timeout=60)
-    rest = bench_lines(rest, "bench SIGTERM run")
-    log(f"bench SIGTERM run: exit {p.returncode}; lines after the signal: "
-        + json.dumps(rest))
-    if p.returncode != 0 or len(seen) < 2 or len(rest) < 2 or \
-            not all(x["partial"] for x in rest[:-1]) or \
-            rest[-1] != seen[-2]:
-        raise SystemExit("bench: SIGTERM did not print the partial line and "
-                         "then the last final line with exit 0")
-    log(f"bench phase: {time.perf_counter() - t0:.1f} s")
-    return counts
-
-
 def main(argv=None):
     import argparse
     import torch
@@ -2499,8 +2330,6 @@ def main(argv=None):
                     "14 (over distinct cards where several are visible)")
     ap.add_argument("--profilers-only", action="store_true",
                     help="only the build and the profilers phase")
-    ap.add_argument("--bench-only", action="store_true",
-                    help="only the build and the benchmark phase")
     ap.add_argument("--judge-only", metavar="CKPT", default=None,
                     help="only the build, then the tools and smoke.yaml on "
                     "the shipped tracker checkpoint and on CKPT")
@@ -2598,11 +2427,6 @@ def main(argv=None):
         phase("profilers phase", profilers_phase, dev)
         refuse_jax()
         return 0
-    if args.bench_only:
-        phase("bench phase", bench_phase, in_child=True)
-        check_pretrained()
-        refuse_jax()
-        return 0
     if args.learned_only:
         _, learned, _ = phase("learned path", learned_path, dev)
         window_phase("learned final window", learned)
@@ -2657,7 +2481,6 @@ def main(argv=None):
     phase("tools phase", tools_phase, dev)
     counts_profilers, profiler_clouds = phase("profilers phase",
                                               profilers_phase, dev)
-    counts_bench = phase("bench phase", bench_phase, in_child=True)
     check_pretrained()
     src = "splatslam_tpu_torch/csrc/composite.cu"
     replaces = {"composite_fwd": "splatslam_tpu/ops/raster_pallas.py:333",
@@ -2672,7 +2495,7 @@ def main(argv=None):
             launches_recorded=counts_recorded[name],
             launches_multidevice=counts_multi[name],
             launches_profilers=counts_profilers[name],
-            launches_bench=counts_bench[name], **m,
+            **m,
             one_camera={k: v for k, v in single[name].items()
                         if k != "library_ms"},
             window={k: v for k, v in w.items() if k != "library_ms"},

@@ -30,7 +30,6 @@ of the port goes through.
 """
 
 import os
-import signal
 
 import numpy as np
 import pytest
@@ -233,7 +232,6 @@ CLIS = {
     "train_droid": ("splatslam_tpu_torch.train_droid",
                     lambda t: ["--out", str(t / "f.msgpack"), "--dba-out",
                                str(t / "d.msgpack")]),
-    "bench": ("splatslam_tpu_torch.bench", lambda t: []),
     "flow_probe": ("splatslam_tpu_torch.tools.flow_probe", lambda t: []),
     "admission_calib": ("splatslam_tpu_torch.tools.admission_calib",
                         lambda t: []),
@@ -256,15 +254,8 @@ def test_every_cli_switches_tf32_off(cli, tf32_on, tmp_path, monkeypatch):
     module, args = CLIS[cli]
     mod = importlib.import_module(module)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    monkeypatch.setenv("BENCH_TUNNEL_PROBE_S", "0")
-    monkeypatch.setenv("BENCH_OUT", str(tmp_path / "bench"))
-    handlers = {s: signal.getsignal(s) for s in (signal.SIGTERM,
-                                                 signal.SIGINT)}
     try:
         mod.main(args(tmp_path))
     except (AssertionError, RuntimeError) as e:
         assert "CUDA" in str(e), e
-    finally:
-        for s, h in handlers.items():       # the bench sets its own
-            signal.signal(s, h)
     assert _flags() == (False, False)

@@ -41,7 +41,10 @@ objects an earlier phase built resolves its device itself:
      n_touched; then the same on one camera of that input, the grid of most
      of the main path's launches; then DSPO stage 2's kernels (csrc/dspo.cu:
      the iteration and the multiview filter) at the cells' shapes against
-     their plain versions, and timed beside them (dspo_phase);
+     their plain versions, and timed beside them (dspo_phase); then the
+     update operator's local correlation (csrc/corr.cu) on a frontend and a
+     loop round against the plain alt_corr and a float64 referee, timed
+     beside the plain chain (corr_phase);
   4. main path: configs/Synthetic/replica_scale.yaml through the port's
      SLAM at full width and full depth, with every kernel launch count
      reset just before and read just after (each must be non-zero);
@@ -53,11 +56,13 @@ objects an earlier phase built resolves its device itself:
   7. learned path: configs/Synthetic/smoke.yaml (DroidNet admission and
      update rounds, loop closure, final BA, mapping, refine, every
      evaluation and the trajectory filler) through the port's SLAM, uncut,
-     with the launch counts reset just before and read just after; then
-     B1/B2 against their plain versions on this run's final window;
+     with the launch counts reset just before and read just after (the
+     alt_corr kernel must have launched); then B1/B2 against their plain
+     versions on this run's final window;
   8. network phase: the encoders on one 240x320 and one 320x640 frame, one
-     update-operator call on the learned run's last frontend graph and one
-     alt_corr chunk of it, timed with CUDA events (median of 10); the same
+     update-operator call on the learned run's last frontend graph, one
+     plain alt_corr chunk of it and the alt_corr kernel on all of its edges,
+     timed with CUDA events (median of 10); the same
      update-operator call in float32 against bf16; a torch.profiler window
      over one frontend update_rounds call;
   9. prior path: configs/Synthetic/smoke.yaml with, set in memory, the
@@ -329,6 +334,28 @@ def cuda_ms(fn, reps=10, warmup=2):
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def device_ms(fn, reps=10, warmup=2):
+    """Median milliseconds of `fn`'s device work over `reps` calls: the
+    card sleeps while the host enqueues each call, so the events bracket
+    its kernels and none of the host's time before their launch (which
+    cuda_ms counts when the card waits on the host)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
         a.record()
         fn()
         b.record()
@@ -654,6 +681,87 @@ def dspo_phase(dev):
     return out
 
 
+def corr_phase(dev):
+    """The update operator's local correlation (csrc/corr.cu) on a frontend
+    round (E 75) and a loop round (E 169) at 48x64 among 25 frames
+    (tests/corr_cases.py): held against the plain alt_corr and a float64
+    referee as tests/test_torch_cuda.py holds it (atol 2e-4 / rtol 1e-3),
+    then timed beside its bound: by device_ms the call update_operator
+    makes each round, on the channels-last levels edge_frames hands it
+    (bf16 output, and float32 output), edge_frames' layout copy made once
+    an edge set, and a call on channel-first levels (the wrapper copies
+    them); by cuda_ms the plain chain update_operator ran before it
+    (alt_corr in chunks of corr_chunk(48, 64) = 7 edges), the host's
+    launches included: the card waits on them. Returns the
+    measurements."""
+    import torch
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from corr_cases import alt_corr_f64, make_case
+    from splatslam_tpu_torch import resolve_device
+    from splatslam_tpu_torch.ops import corr as corr_ops, corr_cuda
+    from splatslam_tpu_torch.tracking import factor_graph as FG
+    dev = resolve_device(dev)
+    out = {}
+    for label, name in (("frontend round", "frontend"),
+                        ("loop round", "loop")):
+        c = make_case(name)
+        pyr = [lvl.to(dev) for lvl in c["pyr"]]
+
+        def layout():
+            return [lvl.contiguous(memory_format=torch.channels_last)
+                    for lvl in pyr]
+
+        last = layout()
+        ii, jj, coords = (c[k].to(dev) for k in ("ii", "jj", "coords"))
+        E, P, h, w = len(ii), c["P"], c["h"], c["w"]
+        step = FG.corr_chunk(h, w)
+
+        def plain():
+            return torch.cat([corr_ops.alt_corr(
+                pyr, ii[k:k + step], jj[k:k + step], coords[k:k + step])
+                for k in range(0, E, step)])
+
+        def kernel(dtype=torch.bfloat16, levels=last):
+            return corr_cuda.alt_corr(levels, ii, jj, coords, dtype)
+
+        with torch.no_grad():
+            got16, got, ref = kernel(), kernel(torch.float32), plain()
+            exact = alt_corr_f64(pyr, ii, jj, coords)
+            e_k = float((got.double() - exact).abs().max())
+            e_p = float((ref.double() - exact).abs().max())
+            ok = (bool(torch.allclose(got.double(), exact, atol=2e-4,
+                                      rtol=1e-3))
+                  and torch.equal(got16, got.to(torch.bfloat16))
+                  and torch.equal(got16, kernel(levels=pyr)))
+            log(f"alt_corr kernel, {label}: |kernel - f64| {e_k:.3e}, "
+                f"|plain - f64| {e_p:.3e}, bf16 output = float32 output "
+                f"rounded, within atol 2e-4 / rtol 1e-3: {ok}")
+            if not ok:
+                raise SystemExit(f"the alt_corr kernel disagrees with its "
+                                 f"referee ({label})")
+            del got16, got, ref, exact
+            ms = device_ms(kernel)
+            ms32 = device_ms(lambda: kernel(torch.float32))
+            ms_layout = device_ms(layout)
+            ms_first = device_ms(lambda: kernel(levels=pyr))
+            ms_p = cuda_ms(plain)
+        bound, by = corr_cuda.kernel_bounds(E, P, h, w)
+        bound32, by32 = corr_cuda.kernel_bounds(E, P, h, w, out_bytes=4)
+        log(f"alt_corr kernel, {label} (E {E}, P {P}, {h}x{w}): the "
+            f"round's call {ms:.4f} ms (float32 output {ms32:.4f} ms), "
+            f"edge_frames' channels-last copy {ms_layout:.4f} ms once an "
+            f"edge set, a call on channel-first levels {ms_first:.4f} ms; "
+            f"plain chain {ms_p:.3f} ms host included ({-(-E // step)} "
+            f"chunks of {step}); bound {bound:.4f} ms by {by} (float32 "
+            f"output {bound32:.4f} by {by32}), x bound {ms / bound:.2f}")
+        out[label] = dict(max_abs_err=e_k, plain_max_abs_err=e_p, ms=ms,
+                          ms_f32_out=ms32, ms_layout=ms_layout,
+                          ms_channel_first=ms_first, plain_ms=ms_p,
+                          bound_ms=bound,
+                          bound_by=by, bound_f32_out_ms=bound32)
+    return out
+
+
 def window_input(slam, rows=slice(None)):
     """Packets and tile lists of the main path's final keyframe window (its
     `rows`), as map_step_n's loop makes them: (packets, tile_ids, counts,
@@ -856,17 +964,19 @@ def spy_loop_ba(edges):
 
 def run_slam(label, cfg, dev):
     """One SLAM run with every launch count reset just before and read just
-    after: (launch counts, SLAM object, results). The results also hold the
-    run's on_frame calls ("frames") and the edge count of each loop_ba call
+    after: (launch counts, SLAM object, results); a learned tracker's run
+    counts the alt_corr kernel too. The results also hold the run's
+    on_frame calls ("frames") and the edge count of each loop_ba call
     ("loop_edges"). Fails on a non-finite result, a kernel that never
     launched, a plain compositor call or an on_frame hook not called once
     per frame in order."""
     import torch
     from splatslam_tpu_torch import slam as slam_mod
-    from splatslam_tpu_torch.ops import raster_cuda, rasterizer as R
+    from splatslam_tpu_torch.ops import corr_cuda, raster_cuda, rasterizer as R
     from splatslam_tpu_torch.tracking import backend as BK
     frames, loop_edges = [], []
     raster_cuda.reset_launch_counts()
+    corr_cuda.reset_launch_counts()
     for k in R.plain_calls:
         R.plain_calls[k] = 0
     torch.cuda.reset_peak_memory_stats()
@@ -880,6 +990,8 @@ def run_slam(label, cfg, dev):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(raster_cuda.launches)
+    if not cfg["tracking"].get("oracle", False):
+        counts |= corr_cuda.launches
     plain = dict(R.plain_calls)
     res.update(frames=frames, loop_edges=loop_edges)
     log(f"{label}: weights {res['weights']} frames {res['n_frames']} "
@@ -1161,7 +1273,7 @@ def network_phase(slam, dev):
     from splatslam_tpu_torch import resolve_device
     from splatslam_tpu_torch.models.droid_net import normalize_images
     from splatslam_tpu_torch.models.weights import load_droid_params
-    from splatslam_tpu_torch.ops import corr as corr_ops
+    from splatslam_tpu_torch.ops import corr as corr_ops, corr_cuda
     from splatslam_tpu_torch.tracking import factor_graph as FG
     from splatslam_tpu_torch.tracking.depth_video import reproject
     resolve_device(dev)     # the learned path's net: no TF32
@@ -1199,10 +1311,28 @@ def network_phase(slam, dev):
         n = min(E, FG.corr_chunk(h, w))
         ms_corr = cuda_ms(lambda: corr_ops.alt_corr(
             pyr, ii_r[:n], jj_r[:n], coords1[:n]))
+        ms_kernel = cuda_ms(lambda: corr_cuda.alt_corr(
+            pyr, ii_r, jj_r, coords1, model.dtype))
+        # the kernel's first n edges against the plain chunk, at
+        # corr_phase's tolerance; its network-dtype output is the float32
+        # one rounded
+        plain = corr_ops.alt_corr(pyr, ii_r[:n], jj_r[:n], coords1[:n])
+        got = corr_cuda.alt_corr(pyr, ii_r, jj_r, coords1, torch.float32)
+        got16 = corr_cuda.alt_corr(pyr, ii_r, jj_r, coords1, model.dtype)
+        err = float((got[:n] - plain).abs().max())
+        ok = (bool(torch.allclose(got[:n], plain, atol=2e-4, rtol=1e-3))
+              and torch.equal(got16, got.to(model.dtype)))
     log(f"network ({model.dtype}): update_operator on the last frontend "
         f"graph ({E} edges, {len(set(graph.ii.tolist()))} source keyframes, "
-        f"{h}x{w}) {ms_op:.3f} ms; alt_corr on one chunk of {n} edges "
-        f"{ms_corr:.3f} ms")
+        f"{h}x{w}) {ms_op:.3f} ms; plain alt_corr on one chunk of {n} edges "
+        f"{ms_corr:.3f} ms; the alt_corr kernel on all {E} edges "
+        f"{ms_kernel:.3f} ms; its first {n} edges against the plain chunk: "
+        f"max|diff| {err:.3e} at max|plain| {float(plain.abs().max()):.3f}, "
+        f"within atol 2e-4 / rtol 1e-3 and {model.dtype} output the float32 "
+        f"one rounded: {ok}")
+    if not ok:
+        raise SystemExit("the alt_corr kernel disagrees with the plain "
+                         "version on the learned run's graph")
 
     m32 = load_droid_params(slam.cfg["tracking"].get("pretrained", ""),
                             device=dev, dtype=torch.float32)
@@ -1855,13 +1985,18 @@ def pendulum_cfg(enable_loop, out_name):
 def loop_phase(dev, learned_res):
     """Phase 15: the pendulum configuration with loop closure on and off.
     Gates: loop_ba fired with edges at least once, the loop arm's kf-ATE
-    finite and at most 0.25. Also logs the learned path's loop_ba calls."""
+    finite and at most 0.25, the alt_corr kernel launched in each arm.
+    Also logs the learned path's loop_ba calls. Returns the alt_corr
+    launches of each arm."""
     from splatslam_tpu_torch import slam as slam_mod
+    from splatslam_tpu_torch.ops import corr_cuda
     from splatslam_tpu_torch.tracking import backend as BK
-    arms = {}
+    arms, launched = {}, {}
     for enable in (True, False):
         edges = []
-        cfg = pendulum_cfg(enable, f"pendulum_{'loop' if enable else 'noloop'}")
+        arm = "loop" if enable else "noloop"
+        cfg = pendulum_cfg(enable, f"pendulum_{arm}")
+        corr_cuda.reset_launch_counts()
         t0 = time.perf_counter()
         slam = slam_mod.SLAM(cfg, device=dev)
         orig = spy_loop_ba(edges)
@@ -1872,12 +2007,17 @@ def loop_phase(dev, learned_res):
         wall = time.perf_counter() - t0
         calls = slam.timers.count.get("fe.loop_ba", 0)
         arms[enable] = (res["ate_rmse"], edges)
+        launched[arm] = corr_cuda.launches["alt_corr"]
         log(f"loop phase, loop {'on' if enable else 'off'}: frames "
             f"{res['n_frames']} keyframes {res['n_keyframes']} wall "
             f"{wall:.1f} s kf-ATE {res['ate_rmse']}; fe.loop_ba calls "
             f"{calls} ({res['timers'].get('fe.loop_ba', 0.0):.2f} s), "
             f"edges per call {edges}, of which loop calls with edges "
-            f"{sum(1 for e in edges if e > 0)}")
+            f"{sum(1 for e in edges if e > 0)}; alt_corr kernel launches "
+            f"{launched[arm]}")
+        if launched[arm] <= 0:
+            raise SystemExit(f"the loop phase ({arm}) never launched the "
+                             "alt_corr kernel")
     ate, edges = arms[True]
     log(f"loop phase: kf-ATE loop on {ate} vs off {arms[False][0]} (the "
         "JAX suite's CPU run: 0.2020 vs 0.2104); a record, the gates are "
@@ -1889,6 +2029,7 @@ def loop_phase(dev, learned_res):
     log(f"learned path (smoke.yaml): fe.loop_ba calls "
         f"{len(learned_res['loop_edges'])}, edges per call "
         f"{learned_res['loop_edges']}")
+    return launched
 
 
 def trace_phase(dev, learned_res, n=12):
@@ -1896,12 +2037,15 @@ def trace_phase(dev, learned_res, n=12):
     to `n` frames, without and then with `--profile DIR`. Gates: the trace
     exists and names both kernels and the loop's phases. Records its size
     and the run's wall both ways. Then the on_frame gate on the learned
-    path."""
+    path. Returns the alt_corr kernel's launches over both runs, which
+    oracle tracking never makes."""
     import yaml
     from splatslam_tpu_torch import run as run_mod
+    from splatslam_tpu_torch.ops import corr_cuda
     from splatslam_tpu_torch.utils.profiling import TRACE_FILE
     import shutil
     walls = {}
+    corr_cuda.reset_launch_counts()
     # under build/ (ignored by git): the trace is measured, then deleted
     root = os.path.join(HERE, "build", "trace_phase")
     trace_dir = os.path.join(root, "trace")
@@ -1920,6 +2064,11 @@ def trace_phase(dev, learned_res, n=12):
         t0 = time.perf_counter()
         run_mod.main([path] + (["--profile", trace_dir] if traced else []))
         walls[traced] = time.perf_counter() - t0
+    launched = corr_cuda.launches["alt_corr"]
+    log(f"trace phase: alt_corr kernel launches {launched} (oracle "
+        "tracking runs no update operator)")
+    if launched:
+        raise SystemExit("oracle tracking launched the alt_corr kernel")
     trace = os.path.join(trace_dir, TRACE_FILE)
     if not os.path.exists(trace):
         raise SystemExit("--profile wrote no trace")
@@ -1951,6 +2100,7 @@ def trace_phase(dev, learned_res, n=12):
     log(f"trace phase: on_frame called once per frame on the learned path "
         f"({len(frames)} calls, keyframe index "
         f"{frames[0][2]} -> {frames[-1][2]})")
+    return launched
 
 
 def tools_phase(dev):
@@ -2451,9 +2601,10 @@ def main(argv=None):
     if args.sweep_pixels_per_thread:
         sweep_pixels_per_thread(*inputs)
     dspo = phase("DSPO kernel phase", dspo_phase, dev)
+    corr = phase("correlation kernel phase", corr_phase, dev)
     if args.kernels_only:
         log(json.dumps(dict(kernel_phase=cloud, one_camera=single,
-                            dspo=dspo)))
+                            dspo=dspo, corr=corr)))
         return 0
     counts, slam = phase("main path", main_path, dev)
     window = window_phase("final window", slam)
@@ -2476,8 +2627,8 @@ def main(argv=None):
     del prior
     torch.cuda.empty_cache()
     phase("trainer phase", trainer_phase, dev)
-    phase("loop phase", loop_phase, dev, learned_res)
-    phase("trace phase", trace_phase, dev, learned_res)
+    counts_loop = phase("loop phase", loop_phase, dev, learned_res)
+    counts_trace = phase("trace phase", trace_phase, dev, learned_res)
     phase("tools phase", tools_phase, dev)
     counts_profilers, profiler_clouds = phase("profilers phase",
                                               profilers_phase, dev)
@@ -2515,6 +2666,14 @@ def main(argv=None):
             source="splatslam_tpu_torch/csrc/dspo.cu", replaces=None,
             launches=counts["scale_shift_iteration" if "round" in label
                             else "depth_filter"], **m))
+    for label, m in corr.items():
+        kernels.append(dict(
+            name="alt_corr", input=label, route="cuda",
+            source="splatslam_tpu_torch/csrc/corr.cu", replaces=None,
+            launches_learned=counts_learned["alt_corr"],
+            launches_prior=counts_prior["alt_corr"],
+            launches_recorded=counts_recorded["alt_corr"],
+            launches_loop=counts_loop, launches_trace=counts_trace, **m))
     refuse_jax()
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -36,7 +36,8 @@ import torch
 
 _SRC = Path(__file__).resolve().parents[1] / "csrc" / "composite.cu"
 DSPO_SRC = _SRC.with_name("dspo.cu")      # ops/dspo_cuda.py
-SOURCES = (_SRC, DSPO_SRC)        # every CUDA source the port builds
+CORR_SRC = _SRC.with_name("corr.cu")      # ops/corr_cuda.py
+SOURCES = (_SRC, DSPO_SRC, CORR_SRC)  # every CUDA source the port builds
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
@@ -59,6 +60,7 @@ BWD_OPS_PER_PAIR = 60
 DEAD_OPS_PER_PAIR = 12
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12          # H100 SXM FP32 outside the tensor cores
+BF16_TENSOR_OPS_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores
 SM_COUNT = 132                  # H100 SXM
 
 # Issues on an SM's load/store-and-shuffle pipe (one warp-wide shared load,

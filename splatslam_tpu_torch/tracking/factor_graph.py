@@ -10,11 +10,12 @@ device with exactly as many rows as edges: the JAX package pads them into
 pools only to keep XLA's shapes fixed.
 
 The update operator — reproject → local correlation → ConvGRU → delta and
-weight heads → GraphAgg — is `update_operator`; it never holds the
-O(N·(hw)²) correlation volume of more edges than `corr_chunk` allows. With
-`oracle=True` the flow targets are instead the ground-truth reprojection of
-each edge with unit weights on pixels with GT depth. Either way the targets
-feed the same DSPO bundle adjustment.
+weight heads → GraphAgg — is `update_operator`; on the card its local
+correlation is one kernel launch that holds no volume, elsewhere it never
+holds the O(N·(hw)²) correlation volume of more edges than `corr_chunk`
+allows. With `oracle=True` the flow targets are instead the ground-truth
+reprojection of each edge with unit weights on pixels with GT depth. Either
+way the targets feed the same DSPO bundle adjustment.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import torch
 
 from ..ops import ba as ba_ops
 from ..ops import corr as corr_ops
+from ..ops import corr_cuda
 from ..ops import projective as pops
 from .depth_video import (reproject, depth_filter, frame_distance, nanmedian)
 from ..ops.upsample import upsample_disp, upsample_disp_uniform
@@ -44,6 +46,8 @@ def edge_frames(fmaps, ii, jj, num_levels: int = 4):
     set and the features are."""
     frames = torch.unique(torch.cat([ii, jj]))
     pyr = corr_ops.build_fmap_pyramid(fmaps[frames], num_levels)
+    if fmaps.is_cuda:       # the layout csrc/corr.cu reads, once an edge set
+        pyr = [x.contiguous(memory_format=torch.channels_last) for x in pyr]
     return pyr, torch.searchsorted(frames, ii), torch.searchsorted(frames, jj)
 
 
@@ -54,6 +58,10 @@ def update_operator(model, poses, disps, intrinsics, fmaps, inps, net,
     poses (B,7); disps (B,h,w); intrinsics (4,); fmaps (B,128,h,w) bf16;
     inps (B,128,h,w); net (N,128,h,w); target (N,h,w,2); ii/jj (N,) long.
     pyramid: edge_frames(fmaps, ii, jj), when the caller holds it.
+    The local correlation of CUDA tensors is one launch of csrc/corr.cu
+    (ops/corr_cuda), written in the network's dtype, which has no gradient;
+    that of CPU tensors is ops/corr.alt_corr in chunks of corr_chunk edges.
+    `n.corr.call` counts the calls, `n.corr.kernel` the launches.
     Returns (net', target', weight (N,h,w,2), eta (M,h,w), upmask
     (M,576,h,w), uniq (M,) = unique(ii), coords1), all but net' and upmask
     float32."""
@@ -65,11 +73,16 @@ def update_operator(model, poses, disps, intrinsics, fmaps, inps, net,
 
     pyr, ii_r, jj_r = pyramid if pyramid is not None else edge_frames(
         fmaps, ii, jj)
-    step = corr_chunk(h, w)
-    corr = torch.cat([
-        corr_ops.alt_corr(pyr, ii_r[c:c + step], jj_r[c:c + step],
-                          coords1[c:c + step])
-        for c in range(0, ii.shape[0], step)])
+    tally("n.corr.call", 1)
+    if corr_cuda.takes(coords1):
+        corr = corr_cuda.alt_corr(pyr, ii_r, jj_r, coords1, model.dtype)
+        tally("n.corr.kernel", 1)
+    else:
+        step = corr_chunk(h, w)
+        corr = torch.cat([
+            corr_ops.alt_corr(pyr, ii_r[c:c + step], jj_r[c:c + step],
+                              coords1[c:c + step])
+            for c in range(0, ii.shape[0], step)])
     net, delta, weight = model.update_step(net, inps[ii], corr, motn)
 
     uniq, ix = torch.unique(ii, return_inverse=True)

@@ -28,6 +28,9 @@ Which metric reads each span and counter (benchmark/metrics/):
   n.dspo.frames            prior fit is bad)
   n.dspo.iter,           dspo_kernel_pct (stage-2 iterations, and those
   n.dspo.kernel            that ran as the kernel of csrc/dspo.cu)
+  n.corr.call,           corr_kernel_pct (update_operator calls, and their
+  n.corr.kernel            correlations that ran as the kernel of
+                           csrc/corr.cu)
 """
 
 from __future__ import annotations

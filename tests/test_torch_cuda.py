@@ -33,7 +33,14 @@ torch and the port only, so it runs on a GPU machine without jax:
     cases): an iteration within twice the float32 plain version's distance
     from a float64 run (+1e-6), the same frames rejected; the multiview
     count equal; and one update_rounds call with stage-1 and stage-2
-    rounds on the card against the CPU (atol 2e-4 / rtol 1e-3).
+    rounds on the card against the CPU (atol 2e-4 / rtol 1e-3);
+  * the update operator's local correlation (csrc/corr.cu) against the
+    plain alt_corr and a float64 referee (tests/test_torch_corr.py's atol
+    2e-4 / rtol 1e-3) on the inputs of tests/corr_cases.py (a frontend and
+    a loop round at 48x64, one edge at odd sizes, integer targets, windows
+    outside the map, infinite and NaN targets, targets scattered over the
+    map), its bf16 output the float32 one rounded; and update_operator
+    through it against the CPU.
 """
 
 import numpy as np
@@ -605,5 +612,116 @@ def test_update_rounds_gpu_matches_cpu():
     for name, c, k in zip(("poses", "disps", "scales", "shifts"),
                           outs["cpu"], outs["cuda"]):
         print(f"{name}: max|cuda-cpu| {float((k.cpu() - c).abs().max()):.3e}")
+        torch.testing.assert_close(k.cpu(), c, atol=2e-4, rtol=1e-3,
+                                   msg=lambda m: f"{name}: {m}")
+
+
+# -- the update operator's local correlation (csrc/corr.cu) ------------------
+
+LOOSE = dict(atol=2e-4, rtol=1e-3)      # tests/test_torch_corr.py's
+
+
+def _corr_on(c, dev):
+    return ([lvl.to(dev) for lvl in c["pyr"]], c["ii"].to(dev),
+            c["jj"].to(dev), c["coords"].to(dev))
+
+
+def _corr_plain(pyr, ii, jj, coords, chunk=7):
+    """ops/corr.alt_corr in chunks, as update_operator ran it before the
+    kernel (corr_chunk(48, 64) is 7)."""
+    from splatslam_tpu_torch.ops import corr as corr_ops
+    return torch.cat([corr_ops.alt_corr(pyr, ii[c:c + chunk],
+                                        jj[c:c + chunk], coords[c:c + chunk])
+                      for c in range(0, len(ii), chunk)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["frontend", "loop", "single", "integer",
+                                  "outside", "scattered"])
+def test_corr_kernel_matches_plain(name):
+    """The kernel against the plain alt_corr (in the chunks update_operator
+    ran) and a float64 referee, at tests/test_torch_corr.py's tolerances,
+    on the inputs of tests/corr_cases.py: a frontend round (E 75) and a
+    loop round (E 169) at 48x64, one edge at odd sizes with an empty
+    level, integer targets, windows partly and wholly outside the map,
+    infinite and NaN targets, and targets scattered over the map (a warp's
+    pixels in several passes). The bf16 output is the float32 output
+    rounded to nearest even."""
+    _need_cuda()
+    from corr_cases import alt_corr_f64, make_case
+    from splatslam_tpu_torch.ops import corr_cuda
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pyr, ii, jj, coords = _corr_on(make_case(name), "cuda")
+    corr_cuda.reset_launch_counts()
+    with torch.no_grad():
+        got = corr_cuda.alt_corr(pyr, ii, jj, coords)
+        got16 = corr_cuda.alt_corr(pyr, ii, jj, coords, torch.bfloat16)
+        plain = _corr_plain(pyr, ii, jj, coords)
+        exact = alt_corr_f64(pyr, ii, jj, coords)
+    assert corr_cuda.launches == {"alt_corr": 2}
+    assert got.shape == plain.shape == (len(ii), 196) + coords.shape[1:3]
+    assert got.is_contiguous() and got16.dtype == torch.bfloat16
+    e_k = float((got.double() - exact).nan_to_num().abs().max())
+    e_p = float((plain.double() - exact).nan_to_num().abs().max())
+    e_kp = float((got - plain).nan_to_num().abs().max())
+    print(f"{name}: |kernel - f64| {e_k:.3e}, |plain - f64| {e_p:.3e}, "
+          f"|kernel - plain| {e_kp:.3e}")
+    torch.testing.assert_close(got.double(), exact, equal_nan=True, **LOOSE)
+    torch.testing.assert_close(got, plain, equal_nan=True, **LOOSE)
+    torch.testing.assert_close(got16, got.to(torch.bfloat16), atol=0, rtol=0,
+                               equal_nan=True)
+    if name == "outside":
+        assert float(got[1].abs().max()) == 0.0     # wholly outside
+        assert float(got[2, :, :2, :3].abs().max()) == 0.0   # infinite
+        assert bool(got[3, :, 2, 5].isnan().all())
+        assert int(got.isnan().sum()) == 196
+        # windows partly outside keep their samples inside
+        assert bool((got[0] == 0).any()) and bool((got[0] != 0).any())
+    else:
+        assert bool(torch.isfinite(got).all())
+
+
+@pytest.mark.cuda
+def test_update_operator_corr_kernel_matches_cpu():
+    """update_operator with its correlation through the kernel on the card
+    (one launch, written in the network's dtype, on the channels-last
+    pyramid of edge_frames) against the plain chunks on the CPU, on a denser graph than test_update_operator_gpu_matches_cpu
+    (float32 network, TF32 off; the network parity tolerance)."""
+    _need_cuda()
+    from splatslam_tpu_torch.ops import corr_cuda, lie
+    from splatslam_tpu_torch.tracking.factor_graph import (
+        FactorGraph, edge_frames, update_operator)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    outs, launched = {}, {}
+    for dev in ("cpu", "cuda"):
+        ds, model, video, mf, frames, intr = _tracker(dev, -1.0)
+        for k in range(1, 8):
+            assert mf.track(float(k), frames[k], intr)
+        s = video.state
+        for k in range(8):
+            s.poses[k] = torch.as_tensor(lie.from_matrix_np(
+                np.linalg.inv(ds[k][3]) @ ds[0][3]), device=dev)
+            s.disps[k] = torch.as_tensor(
+                1.0 / np.maximum(ds[k][2][3::8, 3::8][:8, :12], 1e-6),
+                device=dev)
+        g = FactorGraph(video, model, max_factors=64)
+        g.add_neighborhood_factors(0, 8, r=3)
+        # on the card the pyramid comes channels-last, the kernel's layout
+        pyr = edge_frames(s.fmaps, g._idx(g.ii), g._idx(g.jj))[0]
+        assert all(x.is_contiguous(memory_format=torch.channels_last)
+                   for x in pyr) == (dev == "cuda")
+        corr_cuda.reset_launch_counts()
+        with torch.no_grad():
+            outs[dev] = update_operator(
+                model, s.poses, s.disps, video.intr0, s.fmaps, s.inps, g.net,
+                g.target, g._idx(g.ii), g._idx(g.jj))
+        launched[dev] = dict(corr_cuda.launches)
+    assert launched == {"cpu": {"alt_corr": 0}, "cuda": {"alt_corr": 1}}
+    names = ("net", "target", "weight", "eta", "upmask", "uniq", "coords1")
+    for name, c, k in zip(names, outs["cpu"], outs["cuda"]):
+        assert k.device.type == "cuda", name
+        print(f"{name}: max|cuda-cpu| "
+              f"{float((k.cpu().double() - c.double()).abs().max()):.3e}")
         torch.testing.assert_close(k.cpu(), c, atol=2e-4, rtol=1e-3,
                                    msg=lambda m: f"{name}: {m}")
